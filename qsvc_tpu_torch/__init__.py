@@ -1,0 +1,13 @@
+"""qsvc_tpu_torch — the PyTorch/CUDA port of the qsvc_tpu video codec.
+
+Mirrors the layout of the JAX package (``ops/``, ``mctf/``, ``codec/``,
+``io/``, ``utils/``, ``config.py``, ``api.py``) and never imports it or
+JAX.  Tensors stay on the device the caller names on the ``api`` entry
+points; on a CUDA device the motion search, prediction and update run in
+the hand-written kernels under ``csrc/``, on the CPU in their plain
+PyTorch versions.  The native EBCOT coder is built from the JAX package's
+C++ source (``qsvc_tpu/native/ebcot.cpp``), so both packages write
+byte-identical containers.
+"""
+
+__version__ = "0.1.0"

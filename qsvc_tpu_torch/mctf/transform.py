@@ -1,0 +1,161 @@
+"""The full MCTF temporal transform: analyze (encode) and synthesize
+(decode).
+
+Port of ``qsvc_tpu/mctf/transform.py``: per level, split -> motion
+estimation -> predict -> update, and the inverse un-update -> correlate
+-> merge, with the level schedule of ``CodecConfig.level_schedule()``.
+Frame pairs form the leading batch axis.  All arithmetic runs in int16
+(pixels, 4:4:4 interpolations, residues and update contributions stay
+below 2^10 in magnitude); SAD sums and update accumulations widen to
+int32 inside the steps.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig
+from . import me, predict, update
+
+Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class LevelData(NamedTuple):
+    """Encoded data of one temporal level ``t``."""
+    high_y: torch.Tensor   # (P, H, W) biased residue / raw I frames
+    high_u: torch.Tensor   # (P, H/2, W/2)
+    high_v: torch.Tensor
+    mv: torch.Tensor       # (P, 2, 2, By, Bx) motion (0 for I frames)
+    is_B: torch.Tensor     # (P,) bool frame types
+
+
+class MCTFStream(NamedTuple):
+    """Full temporal decomposition of a sequence."""
+    low_y: torch.Tensor    # final low band L_{TRLs-1}
+    low_u: torch.Tensor
+    low_v: torch.Tensor
+    levels: Tuple[LevelData, ...]   # level 1 (finest) .. TRLs-1
+
+    @classmethod
+    def from_numpy(cls, stream, device="cpu") -> "MCTFStream":
+        """Convert any stream with these fields (numpy arrays, or the JAX
+        package's ``MCTFStream``) into torch tensors on ``device``."""
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(device)
+        return cls(t(stream.low_y), t(stream.low_u), t(stream.low_v),
+                   tuple(LevelData(*(t(a) for a in lev))
+                         for lev in stream.levels))
+
+    def to_numpy(self) -> "MCTFStream":
+        """The same stream with numpy arrays in place of tensors."""
+        def n(a):
+            return a.cpu().numpy()
+        return MCTFStream(n(self.low_y), n(self.low_u), n(self.low_v),
+                          tuple(LevelData(*(n(a) for a in lev))
+                                for lev in self.levels))
+
+
+def _check_supported(cfg: CodecConfig) -> None:
+    if cfg.subpixel_accuracy > 0:
+        raise NotImplementedError("sub-pixel MCTF is not ported yet")
+    if cfg.block_overlaping > 0:
+        raise NotImplementedError("overlapped-block MCTF is not ported yet")
+
+
+def _analyze_level(low: Planes, block_size: int, search_range: int,
+                   cfg: CodecConfig) -> Tuple[Planes, LevelData]:
+    y, u, v = low
+    ey, eu, ev = (p[0::2].contiguous() for p in (y, u, v))
+    oy, ou, ov = (p[1::2].contiguous() for p in (y, u, v))
+
+    mv = me.estimate_sequence(ey, oy, block_size, search_range,
+                              cfg.border_size, cfg.subpixel_accuracy)
+    evens444 = predict.refs_to_444(ey, eu, ev)
+    preds = predict.predict_frames_batch(
+        evens444[:-1], evens444[1:], mv, block_size, search_range,
+        cfg.block_overlaping)
+    dec = predict.decorrelate_from_pred((oy, ou, ov), preds, mv,
+                                        cfg.always_B)
+
+    if cfg.update_factor != 0.0:
+        res444 = update.residue_to_444((dec.high_y, dec.high_u, dec.high_v),
+                                       dec.is_B)
+        upd_prev, upd_next = update.update_fields_batch2(
+            res444, dec.mv_out, block_size, cfg.update_factor, search_range)
+        # phase 1: even[j] += NEXT-update of pair j-1, phase 2: even[j] +=
+        # PREV-update of pair j, each truncating and clamping
+        ev444 = evens444.clone()
+        ev444[1:] = update.apply_update(ev444[1:], upd_next, 1)
+        ev444[:-1] = update.apply_update(ev444[:-1], upd_prev, 1)
+        ly = ev444[:, 0]
+        lu = predict.downsample_chroma(ev444[:, 1])
+        lv = predict.downsample_chroma(ev444[:, 2])
+    else:
+        ly, lu, lv = ey, eu, ev
+    return (ly, lu, lv), LevelData(dec.high_y, dec.high_u, dec.high_v,
+                                   dec.mv_out, dec.is_B)
+
+
+def _synthesize_level(low: Planes, lev: LevelData, block_size: int,
+                      search_range: int, cfg: CodecConfig) -> Planes:
+    low444 = predict.refs_to_444(*low)
+    if cfg.update_factor != 0.0:
+        res444 = update.residue_to_444((lev.high_y, lev.high_u, lev.high_v),
+                                       lev.is_B)
+        upd_prev, upd_next = update.update_fields_batch2(
+            res444, lev.mv, block_size, cfg.update_factor, search_range)
+        ev444 = low444.clone()
+        ev444[1:] = update.apply_update(ev444[1:], upd_next, -1)
+        ev444[:-1] = update.apply_update(ev444[:-1], upd_prev, -1)
+    else:
+        ev444 = low444
+
+    preds = predict.predict_frames_batch(
+        ev444[:-1], ev444[1:], lev.mv, block_size, search_range,
+        cfg.block_overlaping)
+    odd = predict.correlate_from_pred((lev.high_y, lev.high_u, lev.high_v),
+                                      preds, lev.is_B)
+    even = (ev444[:, 0], predict.downsample_chroma(ev444[:, 1]),
+            predict.downsample_chroma(ev444[:, 2]))
+
+    def merge(e, o):                      # re-interleave (split inverse)
+        out = e.new_zeros((e.shape[0] + o.shape[0],) + e.shape[1:])
+        out[0::2] = e
+        out[1::2] = o
+        return out
+
+    return tuple(merge(e, o) for e, o in zip(even, odd))
+
+
+def analyze(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            cfg: CodecConfig) -> MCTFStream:
+    """Forward MCTF of a (2k+1)-frame sequence; planes in [0,255] of any
+    integer dtype, on the device the transform should run on."""
+    _check_supported(cfg)
+    low = (y.to(torch.int16), u.to(torch.int16), v.to(torch.int16))
+    levels: List[LevelData] = []
+    for lp in cfg.level_schedule():
+        low, lev = _analyze_level(low, lp.block_size, lp.search_range, cfg)
+        levels.append(lev)
+    return MCTFStream(low[0], low[1], low[2], tuple(levels))
+
+
+def synthesize(stream: MCTFStream, cfg: CodecConfig,
+               discard_TRLs: int = 0) -> Planes:
+    """Inverse MCTF over the kept levels (``discard_TRLs`` finest levels
+    dropped: ``stream.levels`` then holds only the coarser ones)."""
+    _check_supported(cfg)
+    low = tuple(p.to(torch.int16)
+                for p in (stream.low_y, stream.low_u, stream.low_v))
+    kept = cfg.level_schedule()[discard_TRLs:]
+    for lp, lev in zip(reversed(kept), reversed(stream.levels)):
+        lev = LevelData(lev.high_y.to(torch.int16),
+                        lev.high_u.to(torch.int16),
+                        lev.high_v.to(torch.int16),
+                        lev.mv.to(torch.int32), lev.is_B)
+        low = _synthesize_level(low, lev, lp.block_size, lp.search_range,
+                                cfg)
+    return low

@@ -1,0 +1,71 @@
+"""Launch wrappers of K2 (MC predict) and K3 (MC update, both
+directions) in ``csrc/mc.cu``, replacing ``qsvc_tpu/ops/pallas_mc.py::
+predict_pallas`` and ``update2_pallas``.
+
+CUDA tensors only; anything else raises.  The plain PyTorch versions are
+``mctf/predict.py::predict_frame`` and ``mctf/update.py::_update_field``,
+which ``predict_frames_batch`` / ``update_fields_batch2`` use for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+
+def _geometry(H: int, W: int, mv: torch.Tensor, block_size: int):
+    By, Bx = mv.shape[-2], mv.shape[-1]
+    if (By * block_size, Bx * block_size) != (H, W):
+        raise ValueError(f"frame {(H, W)} is not the {By}x{Bx} grid of "
+                         f"{block_size}-pixel blocks")
+    return By, Bx
+
+
+def predict(refs_prev: torch.Tensor, refs_next: torch.Tensor,
+            mv: torch.Tensor, block_size: int, border: int) -> torch.Tensor:
+    """Bidirectional block prediction: (P, C, H, W) int16 references,
+    (P, 2, 2, By, Bx) int32 vectors -> (P, C, H, W) int16 clipped
+    truncating averages.  ``border`` is the edge-replication depth of the
+    plain version (4 * search_range)."""
+    P, C, H, W = refs_prev.shape
+    By, Bx = _geometry(H, W, mv, block_size)
+    cuda_lib.check_tensor("refs_prev", refs_prev, torch.int16, (P, C, H, W))
+    cuda_lib.check_tensor("refs_next", refs_next, torch.int16, (P, C, H, W))
+    cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx))
+    out = torch.empty_like(refs_prev)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.load()
+    with torch.cuda.device(mv.device):
+        err = lib.qsvc_mc_predict(
+            cuda_lib.ptr(refs_prev), cuda_lib.ptr(refs_next),
+            cuda_lib.ptr(mv), cuda_lib.ptr(out), P, C, H, W, By, Bx,
+            block_size, border, cuda_lib.stream_ptr(mv))
+        cuda_lib.launched("mc_predict", err)
+    return out
+
+
+def update2(contrib: torch.Tensor, mv: torch.Tensor, block_size: int,
+            search_range: int) -> torch.Tensor:
+    """Accumulated MC update for both directions: (P, C, H, W) int16
+    contributions, (P, 2, 2, By, Bx) int32 vectors -> (P, 2, C, H, W)
+    int32 sums (direction 0 = PREV reference, 1 = NEXT)."""
+    P, C, H, W = contrib.shape
+    By, Bx = _geometry(H, W, mv, block_size)
+    cuda_lib.check_tensor("contrib", contrib, torch.int16, (P, C, H, W))
+    cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx))
+    K = -(-int(search_range) // block_size)
+    out = torch.empty((P, 2, C, H, W), dtype=torch.int32,
+                      device=contrib.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.load()
+    with torch.cuda.device(mv.device):
+        err = lib.qsvc_mc_update2(
+            cuda_lib.ptr(contrib), cuda_lib.ptr(mv), cuda_lib.ptr(out),
+            P, C, H, W, By, Bx, block_size, K, int(search_range),
+            cuda_lib.stream_ptr(mv))
+        cuda_lib.launched("mc_update2", err)
+    return out

@@ -1,0 +1,100 @@
+"""PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update)
+against their plain PyTorch versions.
+
+Tests marked ``gpu`` need a CUDA device and skip without one;
+``python3 chip_smoke.py`` runs the same comparisons at the flagship
+shapes on the card.  The wrappers' argument checks run anywhere."""
+
+import numpy as np
+import pytest
+import torch
+
+from qsvc_tpu_torch.mctf import me, predict, update
+from qsvc_tpu_torch.ops import cuda_lib, cuda_mc, cuda_me
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, lo, hi, dtype, device):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)
+                            ).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,ny,nx,By,Bx,bs,sr", [
+    (2, 64, 128, 2, 4, 32, 4), (3, 40, 72, 3, 5, 16, 8),
+    (1, 17, 30, 2, 2, 16, 32)])
+def test_k1_matches_plain(cuda, P, ny, nx, By, Bx, bs, sr):
+    rng = np.random.default_rng(ny)
+    planes = [_rand(rng, (P, ny, nx), 0, 256, np.int16, cuda)
+              for _ in range(3)]
+    mv = _rand(rng, (P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32, cuda)
+    got = me._refine_level_batch(*planes, mv, bs, 0, ny, nx, sr)
+    want = me._refine_level(*planes, mv, bs, 0, ny, nx, sr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,sr", [(16, 4), (16, 16), (8, 12)])
+def test_k2_k3_match_plain(cuda, bs, sr):
+    rng = np.random.default_rng(bs + sr)
+    P, C, By, Bx = 2, 3, 4, 6
+    H, W = By * bs, Bx * bs
+    refs = [_rand(rng, (P, C, H, W), 0, 256, np.int16, cuda)
+            for _ in range(2)]
+    mv = _rand(rng, (P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32, cuda)
+    torch.testing.assert_close(
+        predict.predict_frames_batch(*refs, mv, bs, sr),
+        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+    res = _rand(rng, (P, C, H, W), -128, 128, np.int16, cuda)
+    got = update.update_fields_batch2(res, mv, bs, 0.25, sr)
+    for d in range(2):
+        want = update._update_field(res, mv[:, d, 0], mv[:, d, 1], bs, 0.25,
+                                    sr)
+        torch.testing.assert_close(got[d], want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_launch_counts(cuda):
+    cuda_lib.reset_launches()
+    z = torch.zeros((1, 3, 32, 32), dtype=torch.int16, device=cuda)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32, device=cuda)
+    cuda_mc.predict(z, z, mv, 16, 16)
+    cuda_mc.update2(z, mv, 16, 4)
+    cuda_me.refine(z[:, 0], z[:, 0], z[:, 0], mv, 16, 0, 32, 32, 4)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launches) == {"mc_predict": 1, "mc_update2": 1,
+                                       "me_refine": 1}
+
+
+def test_wrappers_reject_cpu_tensors():
+    """A wrapper never computes on a tensor off the card."""
+    z = torch.zeros((1, 3, 32, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mc.predict(z, z, mv, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mc.update2(z, mv, 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_me.refine(z[:, 0], z[:, 0], z[:, 0], mv, 16, 0, 32, 32, 4)
+
+
+def test_k1_rejects_border():
+    z = torch.zeros((1, 32, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        cuda_me.refine(z, z, z, mv, 16, 1, 32, 32, 4)
+
+
+def test_predict_rejects_off_grid_frames():
+    z = torch.zeros((1, 3, 30, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="grid"):
+        cuda_mc.predict(z, z, mv, 16, 16)

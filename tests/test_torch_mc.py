@@ -1,0 +1,172 @@
+"""PyTorch port: motion-compensated predict and update against the JAX
+package.
+
+The plain versions of K2 (``predict.predict_frame``) and K3
+(``update._update_field``) against the Pallas kernels in interpret mode
+and against the lax formulations, including the |mv| == block_size
+extremes and vectors one past the update's padding.  Exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from qsvc_tpu.mctf import predict as jpredict
+from qsvc_tpu.mctf import update as jupdate
+from qsvc_tpu.ops import pallas_mc
+from qsvc_tpu_torch.mctf import predict, update
+
+torch.set_num_threads(1)
+
+BS = 16
+FX = pallas_mc._fx(BS)
+H, W = 48, 128
+BY, BX = H // BS, W // BS
+P = 2
+SR = 4
+
+
+def _pad(x, bs, mode):
+    fx = pallas_mc._fx(bs)
+    return np.pad(x, [(0, 0), (0, 0), (bs, bs), (fx * bs, fx * bs)],
+                  mode=mode)
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+def _port_update2(res, mv, bs, sr):
+    r, m = _t(res, mv)
+    return [update._update_field(r, m[:, d, 0], m[:, d, 1], bs, 0.25,
+                                 sr).numpy() for d in range(2)]
+
+
+def _lax_update(res, mv, d, bs, sr):
+    return np.asarray(jax.vmap(lambda r, my, mx: jupdate._update_field(
+        r, my, mx, bs, 0.25, sr))(jnp.asarray(res), jnp.asarray(mv[:, d, 0]),
+                                  jnp.asarray(mv[:, d, 1])))
+
+
+def _refs_mv(rng, reach):
+    refs = rng.integers(0, 256, (2, P, 3, H, W)).astype(np.int16)
+    mv = rng.integers(-reach, reach + 1, (P, 2, 2, BY, BX)).astype(np.int32)
+    return refs[0], refs[1], mv
+
+
+def test_predict_plain_matches_pallas(rng):
+    """|mv| up to the block size, the Pallas kernel's reach."""
+    refs_p, refs_n, mv = _refs_mv(rng, BS)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_mc.predict_pallas(
+            jnp.asarray(_pad(refs_p, BS, "edge")),
+            jnp.asarray(_pad(refs_n, BS, "edge")), jnp.asarray(mv), BS))
+    got = predict.predict_frame(*_t(refs_p, refs_n, mv), BS, 4 * SR).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("reach", [SR, BS])
+def test_predict_plain_matches_lax(rng, reach):
+    refs_p, refs_n, mv = _refs_mv(rng, reach)
+    lax = np.asarray(jax.vmap(lambda a, b, m: jpredict.predict_frame(
+        a, b, m, BS, 4 * SR))(jnp.asarray(refs_p), jnp.asarray(refs_n),
+                              jnp.asarray(mv)))
+    got = predict.predict_frame(*_t(refs_p, refs_n, mv), BS, 4 * SR).numpy()
+    np.testing.assert_array_equal(got, lax)
+
+
+def test_predict_plain_beyond_border_matches_lax(rng):
+    """Vectors past the edge padding: the lax gather moves its patch, the
+    plain version (and K2) must move it the same way."""
+    refs = rng.integers(0, 256, (2, P, 3, 32, 48)).astype(np.int16)
+    mv = rng.integers(-7, 8, (P, 2, 2, 2, 3)).astype(np.int32)
+    lax = np.asarray(jax.vmap(lambda a, b, m: jpredict.predict_frame(
+        a, b, m, 16, 3))(jnp.asarray(refs[0]), jnp.asarray(refs[1]),
+                         jnp.asarray(mv)))
+    got = predict.predict_frame(*_t(refs[0], refs[1], mv), 16, 3).numpy()
+    np.testing.assert_array_equal(got, lax)
+
+
+def test_update_plain_matches_pallas_update2(rng):
+    """Both directions, |mv| up to the block size (the Pallas kernel's
+    reach), search_range = block size so the lax pad covers it too."""
+    res = rng.integers(-128, 128, (P, 3, H, W)).astype(np.int16)
+    mv = rng.integers(-BS, BS + 1, (P, 2, 2, BY, BX)).astype(np.int32)
+    contrib = np.floor(res.astype(np.float32) * 0.25).astype(np.int16)
+    mvp = np.pad(mv, [(0, 0), (0, 0), (0, 0), (1, 1), (1, 1)])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_mc.update2_pallas(
+            jnp.asarray(_pad(contrib, BS, "constant")), jnp.asarray(mvp),
+            BS))
+    got = _port_update2(res, mv, BS, BS)
+    np.testing.assert_array_equal(got[0], want[:, 0])
+    np.testing.assert_array_equal(got[1], want[:, 1])
+
+
+def test_update_plain_extreme_vectors(rng):
+    """|mv| == block_size at the frame corners."""
+    bs, h, w = 16, 32, 128
+    res = rng.integers(-128, 128, (1, 1, h, w)).astype(np.int16)
+    mv = np.where(rng.random((1, 2, 2, h // bs, w // bs)) < 0.5, -bs,
+                  bs).astype(np.int32)
+    got = _port_update2(res, mv, bs, bs)
+    for d in range(2):
+        np.testing.assert_array_equal(got[d], _lax_update(res, mv, d, bs, bs))
+
+
+@pytest.mark.parametrize("bs,sr,reach", [(16, 4, 4), (16, 4, 5), (8, 12, 13),
+                                         (16, 2, 9)])
+def test_update_plain_matches_lax(rng, bs, sr, reach):
+    """General K = ceil(sr/bs), and vectors past the search-range pad
+    (motion estimation returns up to sr + 1) where the lax gather moves
+    its patch."""
+    h, w = 4 * bs, 6 * bs
+    res = rng.integers(-128, 128, (P, 3, h, w)).astype(np.int16)
+    mv = rng.integers(-reach, reach + 1, (P, 2, 2, 4, 6)).astype(np.int32)
+    got = _port_update2(res, mv, bs, sr)
+    for d in range(2):
+        np.testing.assert_array_equal(got[d], _lax_update(res, mv, d, bs, sr))
+
+
+def test_update_fields_batch2_cpu_matches_jax(rng):
+    res = rng.integers(-128, 128, (P, 3, H, W)).astype(np.int16)
+    mv = rng.integers(-SR - 1, SR + 2, (P, 2, 2, BY, BX)).astype(np.int32)
+    want = jupdate.update_fields_batch2(jnp.asarray(res), jnp.asarray(mv),
+                                        BS, 0.25, SR)
+    got = update.update_fields_batch2(*_t(res, mv), BS, 0.25, SR)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
+def test_decorrelate_correlate_match_jax(rng):
+    """Residues, I/B decision and the inverse, batched over pairs."""
+    oy = rng.integers(0, 256, (P, 32, 48)).astype(np.int16)
+    ou = rng.integers(0, 256, (P, 16, 24)).astype(np.int16)
+    ov = rng.integers(0, 256, (P, 16, 24)).astype(np.int16)
+    pred = np.clip(np.repeat(oy[:, None], 3, 1)
+                   + rng.integers(-6, 7, (P, 3, 32, 48)), 0, 255
+                   ).astype(np.int16)
+    pred[1] = rng.integers(0, 256, (3, 32, 48))     # an I-frame candidate
+    mv = rng.integers(-4, 5, (P, 2, 2, 2, 3)).astype(np.int32)
+    want = jax.vmap(jpredict.decorrelate_from_pred)(
+        (jnp.asarray(oy), jnp.asarray(ou), jnp.asarray(ov)),
+        jnp.asarray(pred), jnp.asarray(mv))
+    got = predict.decorrelate_from_pred(_t(oy, ou, ov), _t(pred)[0],
+                                        _t(mv)[0])
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    back = predict.correlate_from_pred(got[:3], _t(pred)[0], got.is_B)
+    want_back = jax.vmap(jpredict.correlate_from_pred)(
+        tuple(want[:3]), jnp.asarray(pred), want.is_B)
+    for g, w_ in zip(back, want_back):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
+def test_ola_raises():
+    z = torch.zeros((1, 3, 32, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        predict.predict_frames_batch(z, z, mv, 16, 4, block_overlaping=4)

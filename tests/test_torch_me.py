@@ -1,0 +1,111 @@
+"""PyTorch port: motion estimation against the JAX package.
+
+K1's plain version (``me._refine_level``) against the Pallas kernel in
+interpret mode and against the lax formulation; ``estimate_sequence``
+end to end.  All integer: exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from qsvc_tpu.mctf import me as jme
+from qsvc_tpu.ops import pallas_me
+from qsvc_tpu_torch.mctf import me
+
+torch.set_num_threads(1)
+
+BS = 32
+FX = pallas_me._fx(BS)
+H, W = 64, 128
+BY, BX = H // BS, W // BS
+P = 2
+SR = 4
+
+
+def _pad(x, ny, nx):
+    act = x[:, :ny, :nx].astype(np.int32)
+    return np.pad(act, ((0, 0), (BS, BY * BS + BS - ny),
+                        (FX * BS, BX * BS + FX * BS - nx)), mode="edge")
+
+
+def _planes(rng, ny, nx):
+    return [rng.integers(0, 256, (P, ny, nx)).astype(np.int16)
+            for _ in range(3)]
+
+
+def _port(planes, mv, ny, nx, max_mv, bs=BS):
+    t = [torch.from_numpy(p) for p in planes]
+    return me._refine_level(*t, torch.from_numpy(mv), bs, 0, ny, nx,
+                            max_mv).numpy()
+
+
+@pytest.mark.parametrize("seed,shrink", [(0, (0, 0)), (1, (0, 0)),
+                                         (3, (10, 20))])
+def test_refine_plain_matches_pallas_interpret(seed, shrink):
+    """Active region = the block grid, and smaller than it (coarse
+    pyramid depths): clamped reads equal the Pallas kernel's
+    edge-padded windows."""
+    rng = np.random.default_rng(seed)
+    ny, nx = H - shrink[0], W - shrink[1]
+    planes = _planes(rng, ny, nx)
+    mv = rng.integers(-SR, SR + 1, (P, 2, 2, BY, BX)).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        d = np.asarray(pallas_me.refine_pallas(
+            *(jnp.asarray(_pad(p, ny, nx)) for p in planes),
+            jnp.asarray(mv), BS))[..., :BX]
+    want = mv + d.reshape(P, 2, 2, BY, BX)
+    np.testing.assert_array_equal(_port(planes, mv, ny, nx, SR), want)
+
+
+@pytest.mark.parametrize("bs,ny,nx,max_mv,reach", [
+    (32, 64, 128, 4, 4),      # the main-path regime
+    (16, 40, 56, 3, 6),       # |mv| beyond max_mv: the gather start clamps
+    (16, 48, 48, 2, 1),       # coarse depth: active region < block grid
+])
+def test_refine_plain_matches_lax(bs, ny, nx, max_mv, reach):
+    rng = np.random.default_rng(bs + ny)
+    By, Bx = -(-ny // bs) + 1, -(-nx // bs)
+    planes = _planes(rng, ny, nx)
+    mv = rng.integers(-reach, reach + 1, (P, 2, 2, By, Bx)).astype(np.int32)
+    want = jax.vmap(lambda a, b, c, m: jme._refine_level(
+        a, b, c, m, bs, 0, ny, nx, max_mv))(
+        *(jnp.asarray(p) for p in planes), jnp.asarray(mv))
+    np.testing.assert_array_equal(_port(planes, mv, ny, nx, max_mv, bs),
+                                  np.asarray(want))
+
+
+def test_refine_plain_border_matches_lax():
+    """border_size > 0 runs only in the plain version (K1 raises)."""
+    rng = np.random.default_rng(5)
+    planes = _planes(rng, 48, 64)
+    mv = rng.integers(-2, 3, (P, 2, 2, 3, 4)).astype(np.int32)
+    want = jax.vmap(lambda a, b, c, m: jme._refine_level(
+        a, b, c, m, 16, 2, 48, 64, 2))(
+        *(jnp.asarray(p) for p in planes), jnp.asarray(mv))
+    got = me._refine_level(*(torch.from_numpy(p) for p in planes),
+                           torch.from_numpy(mv), 16, 2, 48, 64, 2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("H_,W_,bs,sr,kind", [
+    (64, 96, 16, 4, "moving"), (96, 128, 32, 16, "translate"),
+    (80, 112, 16, 8, "random")])
+def test_estimate_sequence_matches_jax(H_, W_, bs, sr, kind):
+    from qsvc_tpu.io import synthetic_video
+    vid = synthetic_video(5, H_, W_, seed=sr, kind=kind)
+    y = vid.y.astype(np.int16)
+    want = jme.estimate_sequence(jnp.asarray(y[0::2]), jnp.asarray(y[1::2]),
+                                 bs, sr, 0, 0)
+    got = me.estimate_sequence(torch.from_numpy(y[0::2]),
+                               torch.from_numpy(y[1::2]), bs, sr)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_subpixel_raises():
+    y = torch.zeros((3, 32, 32), dtype=torch.int16)
+    with pytest.raises(NotImplementedError):
+        me.estimate_sequence(y, y[:2], 16, 4, 0, 1)
