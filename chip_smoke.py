@@ -9,26 +9,41 @@ Phases, one line each; any failure exits non-zero before the last line:
 1. set-up: the card's name and power limit, then the build of the CUDA
    kernels (``qsvc_tpu_torch/csrc``) and of the native EBCOT coder;
 2. kernel parity at the flagship shapes: K1 (spiral SAD refinement) at
-   every pyramid depth of temporal levels 1 and 4, K2 (MC predict) and K3
-   (MC update) at 8 pairs of 1088x1920x3 — each kernel against its plain
-   PyTorch version on the same card, exact equality, with CUDA-event
-   times (median of several calls after a warm-up);
+   every pyramid depth of temporal levels 1 and 4, K2 (MC predict), K3
+   (MC update, both directions) and K4 (MC update, one direction, at
+   search ranges 32 and 4) at 8 pairs of 1088x1920x3 — each kernel
+   against its plain PyTorch version on the same card, exact equality,
+   with CUDA-event times (median of several calls after a warm-up);
 3. correctness on the card: the MCTF analysis of a small sequence on the
    card equals the plain CPU run, and a 1080p lossless 5/3 MCTF stream
    round-trips bit-exactly through its container bytes;
 4. the flagship: 1920x1088, GOP 16 (TRLs=5), 9/7 at slope 45000, 4 GOPs
    staged on the card, encoded (warm-up + timed) and decoded to
-   device-resident uint8, with the kernel launch counts of that run.
+   device-resident uint8, with the kernel launch counts of that run;
+5a. the sharded flagship on one rank (``qsvc_tpu_torch.parallel``): the
+   phase 4 configuration as one 65-frame sequence, ``compress_distributed``
+   byte-identical to ``api.compress`` and ``encode_gops_distributed`` to
+   ``api.compress_gops``; that encode launches K4 and not K3; warm wall
+   times of the sharded and the sequential encode, for information;
+5b. the halo exchange on the card: a ``gloo`` group of 2 spawned
+   processes, both on this card (NCCL takes one rank per card), encodes
+   2 GOPs of 1920x1088 losslessly; both ranks' ``compress_distributed``
+   bytes equal the sequential encode's, their ``synthesize_sharded``
+   frames equal the sequential synthesis, and each rank launched K4.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
+The second-to-last line is a JSON object with one entry per kernel
+(launches counted on that kernel's main path: phase 4 for K1-K3, phase
+5a for K4); the last line is ``{"ok": true, "device": {...}}`` with the
+number of cards the run used.  Without a CUDA device
 the script exits 1 and prints no result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,7 +56,12 @@ KERNEL_SOURCES = {
                    "qsvc_tpu/ops/pallas_mc.py:144"),
     "mc_update2": ("qsvc_tpu_torch/csrc/mc.cu",
                    "qsvc_tpu/ops/pallas_mc.py:224"),
+    "mc_update1": ("qsvc_tpu_torch/csrc/mc.cu",
+                   "qsvc_tpu/ops/pallas_mc.py:297"),
 }
+#: the kernels the sequential flagship (phase 4) must launch; K4 runs on
+#: the sharded path (phase 5a)
+SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2")
 
 
 def _ceil_half(x, times):
@@ -156,11 +176,31 @@ def phase_kernel_parity(dev):
           f"ms, plain {pms:.4f} ms", flush=True)
     results["mc_update2"] = (err, ms, pms)
 
+    # K4, one direction as the sharded MCTF calls it, at the search
+    # ranges of flagship levels 4 (32) and 1 (4); the first is the row
+    k4 = []
+    for sr in (32, 4):
+        mvy, mvx = (rand_planes((P, By, Bx), -sr - 1, sr + 2, np.int32)
+                    for _ in range(2))
+
+        def kernel(mvy=mvy, mvx=mvx, sr=sr):
+            return cuda_mc.update1(contrib, mvy, mvx, bs, sr)
+
+        def plain(mvy=mvy, mvx=mvx, sr=sr):
+            return update._update_sums(contrib, mvy, mvx, bs, sr)
+        err = _max_err(kernel(), plain())
+        ms = _cuda_ms(kernel)
+        pms = _cuda_ms(plain, reps=3)
+        print(f"  K4 P={P} C={C} {H}x{W} sr={sr}: max_abs_err {err}, kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        k4.append((err, ms, pms))
+    results["mc_update1"] = (max(e for e, _, _ in k4),) + k4[0][1:]
+
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
         raise SystemExit(f"phase 2 kernel parity FAILED: {bad}")
-    print("phase 2 kernel parity: ok (K1, K2, K3 exact vs plain versions)",
-          flush=True)
+    print("phase 2 kernel parity: ok (K1, K2, K3, K4 exact vs plain "
+          "versions)", flush=True)
     return results
 
 
@@ -205,14 +245,11 @@ def phase_correctness(dev):
 def phase_flagship(dev):
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.codec.codestream import VideoStream
-    from qsvc_tpu_torch.config import CodecConfig
     from qsvc_tpu_torch.io import Video, synthetic_video, video_psnr
     from qsvc_tpu_torch.ops import cuda_lib
 
-    gops = 4
-    cfg = CodecConfig(pixels_in_x=1920, pixels_in_y=1088, TRLs=5, GOPs=gops,
-                      SRLs=5, search_range=4, update_factor=0.25,
-                      quantization_texture=45000)
+    cfg = _flagship_cfg()
+    gops = cfg.GOPs
     vid = synthetic_video(cfg.pictures, 1088, 1920, seed=0)
     S = cfg.gop_size
     gop_cfg = cfg.replace(GOPs=1)
@@ -246,7 +283,7 @@ def phase_flagship(dev):
         raise SystemExit(f"phase 4: decoded shape {rec.y.shape}")
     py, pu, pv = video_psnr(vid, rec)
     bpp = sum(len(b) for b in blobs) * 8 / (vid.y.size * 3 // 2)
-    missing = [k for k in KERNEL_SOURCES if counts.get(k, 0) == 0]
+    missing = [k for k in SEQUENTIAL_KERNELS if counts.get(k, 0) == 0]
     print(f"phase 4 flagship 1920x1088 GOP16 x{gops}: encode "
           f"{vid.frames / enc_s:.3f} fps ({enc_s:.3f} s, warm-up "
           f"{warm_s:.3f} s), decode {vid.frames / dec_s:.3f} fps "
@@ -259,6 +296,151 @@ def phase_flagship(dev):
     return counts
 
 
+def _flagship_cfg(**kw):
+    from qsvc_tpu_torch.config import CodecConfig
+    args = dict(pixels_in_x=1920, pixels_in_y=1088, TRLs=5, GOPs=4, SRLs=5,
+                search_range=4, update_factor=0.25,
+                quantization_texture=45000)
+    args.update(kw)
+    return CodecConfig(**args)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def phase_sharded(dev):
+    """5a: the sharded flagship on one rank against the sequential one."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.parallel import distributed as pdist
+
+    cfg = _flagship_cfg()
+    vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                          seed=0)
+    mesh = pdist.make_gop_mesh(dev)
+
+    def sharded():
+        return pdist.compress_distributed(vid, cfg, mesh,
+                                          reversible=False).to_bytes()
+
+    def sequential():
+        return api.compress(vid, cfg, reversible=False,
+                            device=dev).to_bytes()
+    cuda_lib.reset_launches()
+    got, first_s = _timed(sharded)
+    counts = dict(cuda_lib.launches)
+    want = sequential()
+    if got != want:
+        raise SystemExit(f"phase 5a: compress_distributed differs from "
+                         f"api.compress ({len(got)} vs {len(want)} bytes)")
+    if counts.get("mc_update1", 0) == 0 or counts.get("mc_update2", 0):
+        raise SystemExit(f"phase 5a: the sharded encode must launch K4 and "
+                         f"not K3: {counts}")
+    gops = pdist.encode_gops_distributed(vid, cfg, mesh, reversible=False)
+    if gops != [s.to_bytes() for s in api.compress_gops(
+            vid, cfg, reversible=False, device=dev)]:
+        raise SystemExit("phase 5a: encode_gops_distributed differs from "
+                         "api.compress_gops")
+    _, shard_s = _timed(sharded)
+    _, seq_s = _timed(sequential)
+    print(f"phase 5a sharded flagship, 1 rank: ok (compress_distributed == "
+          f"api.compress, {len(got)} bytes; encode_gops_distributed == "
+          f"api.compress_gops, {len(gops)} streams; warm encode of "
+          f"{vid.frames} frames: sharded {shard_s:.3f} s, sequential "
+          f"{seq_s:.3f} s, first sharded call {first_s:.3f} s; launches "
+          f"{counts})", flush=True)
+    return counts
+
+
+def _halo_video(cfg):
+    from qsvc_tpu_torch.io import synthetic_video
+    return synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                           seed=5)
+
+
+def _halo_rank(rank, world, store, outdir, device, cfg):
+    """One rank of phase 5b (a process of torch.multiprocessing.spawn)."""
+    import datetime
+    import torch.distributed as dist
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.parallel import distributed as pdist
+    from qsvc_tpu_torch.parallel import transform as ptransform
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    # gloo, not nccl: both ranks share one card
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = pdist.make_gop_mesh(dev)
+        vid = _halo_video(cfg)
+        cuda_lib.reset_launches()
+        data = pdist.compress_distributed(vid, cfg, mesh,
+                                          reversible=True).to_bytes()
+        launches = cuda_lib.launches["mc_update1"]
+        st = ptransform.analyze_sharded(
+            *pdist.shard_video_gops(vid, cfg, mesh), cfg, mesh)
+        rec = ptransform.synthesize_sharded(st, cfg, mesh)
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"),
+                 data=np.frombuffer(data, np.uint8),
+                 launches=np.asarray(launches),
+                 **{c: p.cpu().numpy() for c, p in zip("yuv", rec)})
+        dist.barrier()      # no rank tears down while a peer still sends
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_halo(dev):
+    """5b: two gloo ranks on this card against the sequential encode."""
+    import torch.multiprocessing as mp
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.mctf import transform
+    from qsvc_tpu_torch.parallel import mesh as pmesh
+
+    cfg = _flagship_cfg(GOPs=2, quantization_texture=0)
+    vid = _halo_video(cfg)
+    world = 2
+    card = f"cuda:{torch.cuda.current_device()}"
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        try:
+            mp.spawn(_halo_rank, args=(world, os.path.join(tmp, "store"),
+                                       tmp, card, cfg), nprocs=world,
+                     join=True)
+        except Exception as e:          # a rank failed: the phase fails
+            raise SystemExit(f"phase 5b: a rank failed: {e}")
+        ranks_s = time.time() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(world)]
+    want = api.compress(vid, cfg, reversible=True, device=dev).to_bytes()
+    for r, res in enumerate(ranks):
+        if res["data"].tobytes() != want:
+            raise SystemExit(f"phase 5b: rank {r}'s compress_distributed "
+                             f"differs from the sequential api.compress")
+        if int(res["launches"]) == 0:
+            raise SystemExit(f"phase 5b: rank {r} never launched K4")
+    seq = transform.synthesize(transform.analyze(
+        *(torch.from_numpy(p).to(dev) for p in vid.planes()), cfg), cfg)
+    for c, plane in zip("yuv", seq):
+        got = pmesh.unshard_gops(np.stack([res[c] for res in ranks]))
+        if not np.array_equal(got, plane.cpu().numpy()):
+            raise SystemExit(f"phase 5b: synthesize_sharded differs from "
+                             f"transform.synthesize ({c})")
+    print(f"phase 5b halo on the card, {world} gloo ranks: ok (both ranks' "
+          f"lossless compress_distributed == api.compress, {len(want)} "
+          f"bytes; synthesize_sharded == transform.synthesize; K4 launches "
+          f"per rank {[int(res['launches']) for res in ranks]}; ranks took "
+          f"{ranks_s:.3f} s with start-up)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -268,17 +450,26 @@ def main() -> int:
     phase_setup()
     parity = phase_kernel_parity(dev)
     phase_correctness(dev)
-    counts = phase_flagship(dev)
+    counts = {k: v for k, v in phase_flagship(dev).items()
+              if k in SEQUENTIAL_KERNELS}
+    counts["mc_update1"] = phase_sharded(dev)["mc_update1"]
+    phase_halo(dev)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],
                 "plain_ms": parity[name][2]}
                for name, (src, replaces) in KERNEL_SOURCES.items()]
+    bad = [k["name"] for k in kernels
+           if k["launches"] == 0 or k["max_abs_err"] != 0]
+    if bad:
+        raise SystemExit(f"kernels not launched on their path or inexact: "
+                         f"{bad}")
     print(f"total {time.time() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
+    # every phase ran on the one card of `dev`
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,37 +1,43 @@
-// K2 and K3: block motion compensation, predict and update.
+// K2, K3 and K4: block motion compensation, predict and update.
 //
 // K2 replaces the Pallas TPU kernel qsvc_tpu/ops/pallas_mc.py::
 // predict_pallas (_predict_kernel); plain PyTorch version:
 // qsvc_tpu_torch/mctf/predict.py::predict_frame.
-// K3 replaces qsvc_tpu/ops/pallas_mc.py::update2_pallas (_update2_kernel);
-// plain PyTorch version: qsvc_tpu_torch/mctf/update.py::_update_field.
+// K3 replaces qsvc_tpu/ops/pallas_mc.py::update2_pallas (_update2_kernel)
+// and K4 replaces qsvc_tpu/ops/pallas_mc.py::update_pallas
+// (_update_kernel); plain PyTorch version of both, one direction at a
+// time: qsvc_tpu_torch/mctf/update.py::_update_sums.
 //
 // K2 (predict): out[p,c,y,x] = clip(tdiv(prev[y+mvy_p, x+mvx_p] +
 // next[y+mvy_n, x+mvx_n], 2), 0, 255) with the block's vectors, reads
-// replicating the frame edge.  K3 (update, both directions): destination
-// pixel y of block i sums contrib[y - mv_b] over every neighbour block b
-// within K = ceil(search_range / bs) blocks whose vector maps y into b;
-// sources outside the frame give 0.  Both take the unpadded int16 planes
-// and clamp (K2) or bounds-check (K3) their reads.  Both also place each
-// block patch where the lax gathers they are checked against place it
-// (lax.dynamic_slice counts a negative start from the end of the padded
-// axis, then clamps the patch into it; K2's pad is 4*search_range, K3's
-// is search_range), so they equal the plain versions for every input.
-// That matters for K3 on the main path: motion estimation returns vectors
-// up to search_range + 1, one past K3's pad, and at a frame edge such a
-// vector moves the lax patch.  The Pallas kernel, padded by a whole
-// block, does not reproduce that; the lax version is the reference here.
+// replicating the frame edge.  K3 (update, both directions) and K4 (one
+// direction, the sharded MCTF's call): destination pixel y of block i
+// sums contrib[y - mv_b] over every neighbour block b within K =
+// ceil(search_range / bs) blocks whose vector maps y into b; sources
+// outside the frame give 0.  K3 and K4 share that body (update_sum), so
+// the sequential and the sharded MCTF add the same integers.  All take
+// the unpadded int16 planes and clamp (K2) or bounds-check (K3, K4) their
+// reads.  All also place each block patch where the lax gathers they are
+// checked against place it (lax.dynamic_slice counts a negative start
+// from the end of the padded axis, then clamps the patch into it; K2's
+// pad is 4*search_range, K3's and K4's is search_range), so they equal
+// the plain versions for every input.  That matters for the update on
+// the main path: motion estimation returns vectors up to search_range +
+// 1, one past the pad, and at a frame edge such a vector moves the lax
+// patch.  The Pallas kernels, padded by a whole block, do not reproduce
+// that; the lax version is the reference here.
 //
-// What bounds them on the card: both are pure data movement with a few
+// What bounds them on the card: all are pure data movement with a few
 // integer ops per pixel — HBM bandwidth.  At 1080p, P=8, C=3, K2 reads
 // 2 x 100 MB and writes 50 MB; K3 reads the 50 MB contribution once per
 // neighbour (served from L1/L2: neighbouring threads read neighbouring
-// pixels of the same shifted block) and writes 400 MB of int32 sums.
-// The design is one thread per output pixel, neighbouring threads on
-// neighbouring pixels so every read and write is coalesced, and the
-// per-block vectors are re-read from L1.  K3 is a gather, so the sum is
-// exact and order-independent with no atomics; the Pallas kernels' 3x3
-// neighbourhood staging, rolls and 128-lane grouping have no counterpart.
+// pixels of the same shifted block) and writes 400 MB of int32 sums, K4
+// half of that.  The design is one thread per output pixel, neighbouring
+// threads on neighbouring pixels so every read and write is coalesced,
+// and the per-block vectors are re-read from L1.  The update is a
+// gather, so the sum is exact and order-independent with no atomics; the
+// Pallas kernels' 3x3 neighbourhood staging, rolls and 128-lane grouping
+// have no counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,23 +88,15 @@ mc_predict_kernel(const int16_t* __restrict__ prev,
   out[plane + idx] = static_cast<int16_t>(clampi(s / 2, 0, 255));
 }
 
-__global__ void __launch_bounds__(kThreads)
-mc_update2_kernel(const int16_t* __restrict__ contrib,
-                  const int32_t* __restrict__ mv, int32_t* __restrict__ out,
-                  int C, int H, int W, int By, int Bx, int bs, int K, int S) {
-  const int z = blockIdx.y;               // (p * 2 + d) * C + c
-  const int c_ = z % C;
-  const int pd = z / C;                   // p * 2 + d
-  const int p = pd >> 1;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= H * W) return;
-  const int y = idx / W, x = idx - y * W;
+// The update of destination pixel (y, x) from one direction's vectors
+// (my, mx: that direction's (By, Bx) planes) and one contribution plane.
+__device__ __forceinline__ int update_sum(const int16_t* __restrict__ src,
+                                          const int32_t* __restrict__ my,
+                                          const int32_t* __restrict__ mx,
+                                          int y, int x, int H, int W, int By,
+                                          int Bx, int bs, int K, int S) {
   const int i = y / bs, j = x / bs;
   const int r = y - i * bs, c = x - j * bs;
-  const int nb = By * Bx;
-  const int32_t* my = mv + static_cast<size_t>(pd) * 2 * nb;
-  const int32_t* mx = my + nb;
-  const int16_t* src = contrib + (static_cast<size_t>(p) * C + c_) * H * W;
   int acc = 0;
   for (int dy = -K; dy <= K; ++dy) {
     const int bi = i + dy;
@@ -116,7 +114,41 @@ mc_update2_kernel(const int16_t* __restrict__ contrib,
       acc += src[static_cast<size_t>(sy) * W + sx];
     }
   }
-  out[static_cast<size_t>(z) * H * W + idx] = acc;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+mc_update2_kernel(const int16_t* __restrict__ contrib,
+                  const int32_t* __restrict__ mv, int32_t* __restrict__ out,
+                  int C, int H, int W, int By, int Bx, int bs, int K, int S) {
+  const int z = blockIdx.y;               // (p * 2 + d) * C + c
+  const int c_ = z % C;
+  const int pd = z / C;                   // p * 2 + d
+  const int p = pd >> 1;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= H * W) return;
+  const int y = idx / W, x = idx - y * W;
+  const int nb = By * Bx;
+  const int32_t* my = mv + static_cast<size_t>(pd) * 2 * nb;
+  const int16_t* src = contrib + (static_cast<size_t>(p) * C + c_) * H * W;
+  out[static_cast<size_t>(z) * H * W + idx] =
+      update_sum(src, my, my + nb, y, x, H, W, By, Bx, bs, K, S);
+}
+
+__global__ void __launch_bounds__(kThreads)
+mc_update1_kernel(const int16_t* __restrict__ contrib,
+                  const int32_t* __restrict__ mv_y,
+                  const int32_t* __restrict__ mv_x, int32_t* __restrict__ out,
+                  int C, int H, int W, int By, int Bx, int bs, int K, int S) {
+  const int z = blockIdx.y;               // p * C + c
+  const int p = z / C;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= H * W) return;
+  const int y = idx / W, x = idx - y * W;
+  const size_t nb = static_cast<size_t>(By) * Bx;
+  const size_t plane = static_cast<size_t>(z) * H * W;
+  out[plane + idx] = update_sum(contrib + plane, mv_y + p * nb,
+                                mv_x + p * nb, y, x, H, W, By, Bx, bs, K, S);
 }
 
 }  // namespace
@@ -140,5 +172,17 @@ extern "C" int qsvc_mc_update2(const void* contrib, const void* mv, void* out,
   mc_update2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(contrib), static_cast<const int32_t*>(mv),
       static_cast<int32_t*>(out), C, H, W, By, Bx, bs, K, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int qsvc_mc_update1(const void* contrib, const void* mv_y,
+                               const void* mv_x, void* out, int P, int C,
+                               int H, int W, int By, int Bx, int bs, int K,
+                               int S, void* stream) {
+  const dim3 grid((H * W + kThreads - 1) / kThreads, P * C);
+  mc_update1_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(contrib), static_cast<const int32_t*>(mv_y),
+      static_cast<const int32_t*>(mv_x), static_cast<int32_t*>(out), C, H, W,
+      By, Bx, bs, K, S);
   return static_cast<int>(cudaGetLastError());
 }

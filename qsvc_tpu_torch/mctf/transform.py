@@ -65,8 +65,25 @@ def _check_supported(cfg: CodecConfig) -> None:
         raise NotImplementedError("overlapped-block MCTF is not ported yet")
 
 
+def _update_evens(evens444: torch.Tensor, res444: torch.Tensor,
+                  mv: torch.Tensor, block_size: int, search_range: int,
+                  cfg: CodecConfig, sign: int) -> torch.Tensor:
+    """Both update phases on a level's 4:4:4 evens (returns a new tensor):
+    phase 1 adds to even[j] the NEXT update of pair j-1, phase 2 the PREV
+    update of pair j, each truncating and clamping (``sign`` -1 undoes
+    them).  The sharded MCTF passes its own, with halo exchanges between
+    the phases (``parallel/transform.py``)."""
+    upd_prev, upd_next = update.update_fields_batch2(
+        res444, mv, block_size, cfg.update_factor, search_range)
+    ev444 = evens444.clone()
+    ev444[1:] = update.apply_update(ev444[1:], upd_next, sign)
+    ev444[:-1] = update.apply_update(ev444[:-1], upd_prev, sign)
+    return ev444
+
+
 def _analyze_level(low: Planes, block_size: int, search_range: int,
-                   cfg: CodecConfig) -> Tuple[Planes, LevelData]:
+                   cfg: CodecConfig, update_evens=_update_evens
+                   ) -> Tuple[Planes, LevelData]:
     y, u, v = low
     ey, eu, ev = (p[0::2].contiguous() for p in (y, u, v))
     oy, ou, ov = (p[1::2].contiguous() for p in (y, u, v))
@@ -83,13 +100,8 @@ def _analyze_level(low: Planes, block_size: int, search_range: int,
     if cfg.update_factor != 0.0:
         res444 = update.residue_to_444((dec.high_y, dec.high_u, dec.high_v),
                                        dec.is_B)
-        upd_prev, upd_next = update.update_fields_batch2(
-            res444, dec.mv_out, block_size, cfg.update_factor, search_range)
-        # phase 1: even[j] += NEXT-update of pair j-1, phase 2: even[j] +=
-        # PREV-update of pair j, each truncating and clamping
-        ev444 = evens444.clone()
-        ev444[1:] = update.apply_update(ev444[1:], upd_next, 1)
-        ev444[:-1] = update.apply_update(ev444[:-1], upd_prev, 1)
+        ev444 = update_evens(evens444, res444, dec.mv_out, block_size,
+                             search_range, cfg, 1)
         ly = ev444[:, 0]
         lu = predict.downsample_chroma(ev444[:, 1])
         lv = predict.downsample_chroma(ev444[:, 2])
@@ -100,16 +112,14 @@ def _analyze_level(low: Planes, block_size: int, search_range: int,
 
 
 def _synthesize_level(low: Planes, lev: LevelData, block_size: int,
-                      search_range: int, cfg: CodecConfig) -> Planes:
+                      search_range: int, cfg: CodecConfig,
+                      update_evens=_update_evens) -> Planes:
     low444 = predict.refs_to_444(*low)
     if cfg.update_factor != 0.0:
         res444 = update.residue_to_444((lev.high_y, lev.high_u, lev.high_v),
                                        lev.is_B)
-        upd_prev, upd_next = update.update_fields_batch2(
-            res444, lev.mv, block_size, cfg.update_factor, search_range)
-        ev444 = low444.clone()
-        ev444[1:] = update.apply_update(ev444[1:], upd_next, -1)
-        ev444[:-1] = update.apply_update(ev444[:-1], upd_prev, -1)
+        ev444 = update_evens(low444, res444, lev.mv, block_size,
+                             search_range, cfg, -1)
     else:
         ev444 = low444
 
@@ -134,11 +144,16 @@ def analyze(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             cfg: CodecConfig) -> MCTFStream:
     """Forward MCTF of a (2k+1)-frame sequence; planes in [0,255] of any
     integer dtype, on the device the transform should run on."""
+    return _analyze(y, u, v, cfg, _update_evens)
+
+
+def _analyze(y, u, v, cfg: CodecConfig, update_evens) -> MCTFStream:
     _check_supported(cfg)
     low = (y.to(torch.int16), u.to(torch.int16), v.to(torch.int16))
     levels: List[LevelData] = []
     for lp in cfg.level_schedule():
-        low, lev = _analyze_level(low, lp.block_size, lp.search_range, cfg)
+        low, lev = _analyze_level(low, lp.block_size, lp.search_range, cfg,
+                                  update_evens)
         levels.append(lev)
     return MCTFStream(low[0], low[1], low[2], tuple(levels))
 
@@ -147,6 +162,11 @@ def synthesize(stream: MCTFStream, cfg: CodecConfig,
                discard_TRLs: int = 0) -> Planes:
     """Inverse MCTF over the kept levels (``discard_TRLs`` finest levels
     dropped: ``stream.levels`` then holds only the coarser ones)."""
+    return _synthesize(stream, cfg, discard_TRLs, _update_evens)
+
+
+def _synthesize(stream: MCTFStream, cfg: CodecConfig, discard_TRLs: int,
+                update_evens) -> Planes:
     _check_supported(cfg)
     low = tuple(p.to(torch.int16)
                 for p in (stream.low_y, stream.low_u, stream.low_v))
@@ -157,5 +177,5 @@ def synthesize(stream: MCTFStream, cfg: CodecConfig,
                         lev.high_v.to(torch.int16),
                         lev.mv.to(torch.int32), lev.is_B)
         low = _synthesize_level(low, lev, lp.block_size, lp.search_range,
-                                cfg)
+                                cfg, update_evens)
     return low

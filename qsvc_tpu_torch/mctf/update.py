@@ -10,9 +10,11 @@ contributions from outside the frame drop.
 
 The accumulation is a gather: destination p of block i sums
 ``contrib[p - mv_b]`` over every block b within ``K = ceil(search_range
-/ block_size)`` blocks of i whose vector maps p into b.  Kernel K3
-(``csrc/mc.cu``) does both directions for CUDA tensors;
-:func:`_update_field` is its plain version for CPU tensors.
+/ block_size)`` blocks of i whose vector maps p into b.  For CUDA
+tensors kernel K3 (``csrc/mc.cu``) does both directions in one launch
+(the sequential MCTF) and kernel K4 one direction (the sharded MCTF of
+``parallel/``, which exchanges halos between the two directions);
+:func:`_update_field` is their plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -86,12 +88,28 @@ def _update_field(residue_444: torch.Tensor, mv_dir_y: torch.Tensor,
                   mv_dir_x: torch.Tensor, block_size: int,
                   update_factor: float, search_range: int = 128
                   ) -> torch.Tensor:
-    """Plain version of K3 (one direction): the accumulated integer
-    update ``sum floor(residue * update_factor)`` at motion-compensated
-    destinations.  ``residue_444``: (P, C, H, W) unbiased residue;
+    """Plain version of K4 and of each direction of K3: the accumulated
+    integer update ``sum floor(residue * update_factor)`` at
+    motion-compensated destinations.  ``residue_444``: (P, C, H, W) unbiased residue;
     ``mv_dir_*``: (P, By, Bx).  Returns (P, C, H, W) int32."""
     return _update_sums(_contrib(residue_444, update_factor), mv_dir_y,
                         mv_dir_x, block_size, search_range)
+
+
+def update_fields_batch(res444: torch.Tensor, mv_y: torch.Tensor,
+                        mv_x: torch.Tensor, block_size: int,
+                        update_factor: float, search_range: int
+                        ) -> torch.Tensor:
+    """Accumulated update for one direction of a level's pairs: kernel K4
+    for CUDA tensors, :func:`_update_field` for CPU tensors.
+    ``res444``: (P, C, H, W); ``mv_y``/``mv_x``: (P, By, Bx).  Returns
+    (P, C, H, W) int32."""
+    if not mv_y.is_cuda:
+        return _update_field(res444, mv_y, mv_x, block_size, update_factor,
+                             search_range)
+    return cuda_mc.update1(_contrib(res444, update_factor).contiguous(),
+                           mv_y.contiguous(), mv_x.contiguous(), block_size,
+                           search_range)
 
 
 def update_fields_batch2(res444: torch.Tensor, mv: torch.Tensor,

@@ -85,8 +85,9 @@ def load():
             lib.qsvc_me_refine.argtypes = [vp] * 5 + [ci] * 9 + [vp]
             lib.qsvc_mc_predict.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [vp]
             lib.qsvc_mc_update2.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
+            lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]
             for fn in (lib.qsvc_me_refine, lib.qsvc_mc_predict,
-                       lib.qsvc_mc_update2):
+                       lib.qsvc_mc_update2, lib.qsvc_mc_update1):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib

@@ -1,11 +1,12 @@
-"""Launch wrappers of K2 (MC predict) and K3 (MC update, both
-directions) in ``csrc/mc.cu``, replacing ``qsvc_tpu/ops/pallas_mc.py::
-predict_pallas`` and ``update2_pallas``.
+"""Launch wrappers of K2 (MC predict), K3 (MC update, both directions)
+and K4 (MC update, one direction) in ``csrc/mc.cu``, replacing
+``qsvc_tpu/ops/pallas_mc.py::predict_pallas``, ``update2_pallas`` and
+``update_pallas``.
 
 CUDA tensors only; anything else raises.  The plain PyTorch versions are
 ``mctf/predict.py::predict_frame`` and ``mctf/update.py::_update_field``,
-which ``predict_frames_batch`` / ``update_fields_batch2`` use for CPU
-tensors.
+which ``predict_frames_batch`` / ``update_fields_batch2`` /
+``update_fields_batch`` use for CPU tensors.
 """
 
 from __future__ import annotations
@@ -68,4 +69,28 @@ def update2(contrib: torch.Tensor, mv: torch.Tensor, block_size: int,
             P, C, H, W, By, Bx, block_size, K, int(search_range),
             cuda_lib.stream_ptr(mv))
         cuda_lib.launched("mc_update2", err)
+    return out
+
+
+def update1(contrib: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
+            block_size: int, search_range: int) -> torch.Tensor:
+    """Accumulated MC update for one direction: (P, C, H, W) int16
+    contributions, (P, By, Bx) int32 vector planes -> (P, C, H, W) int32
+    sums."""
+    P, C, H, W = contrib.shape
+    By, Bx = _geometry(H, W, mv_y, block_size)
+    cuda_lib.check_tensor("contrib", contrib, torch.int16, (P, C, H, W))
+    cuda_lib.check_tensor("mv_y", mv_y, torch.int32, (P, By, Bx))
+    cuda_lib.check_tensor("mv_x", mv_x, torch.int32, (P, By, Bx))
+    K = -(-int(search_range) // block_size)
+    out = torch.empty((P, C, H, W), dtype=torch.int32, device=contrib.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.load()
+    with torch.cuda.device(mv_y.device):
+        err = lib.qsvc_mc_update1(
+            cuda_lib.ptr(contrib), cuda_lib.ptr(mv_y), cuda_lib.ptr(mv_x),
+            cuda_lib.ptr(out), P, C, H, W, By, Bx, block_size, K,
+            int(search_range), cuda_lib.stream_ptr(mv_y))
+        cuda_lib.launched("mc_update1", err)
     return out

@@ -129,7 +129,9 @@ def test_lossy_close_to_jax():
 
 
 def test_port_does_not_import_jax():
-    code = ("import sys, qsvc_tpu_torch.api, qsvc_tpu_torch.mctf.transform;"
+    code = ("import sys, qsvc_tpu_torch.api, qsvc_tpu_torch.mctf.transform, "
+            "qsvc_tpu_torch.parallel.distributed, "
+            "qsvc_tpu_torch.parallel.transform;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'qsvc_tpu.')) or m == 'qsvc_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update)
-against their plain PyTorch versions.
+"""PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update,
+K4 one-direction update) against their plain PyTorch versions.
 
 Tests marked ``gpu`` need a CUDA device and skip without one;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship
@@ -62,16 +62,32 @@ def test_k2_k3_match_plain(cuda, bs, sr):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bs,sr", [(16, 4), (16, 16), (8, 12), (64, 32)])
+def test_k4_matches_plain(cuda, bs, sr):
+    """One direction, as the sharded MCTF calls it, |mv| up to sr + 1."""
+    rng = np.random.default_rng(bs * 100 + sr)
+    P, C, By, Bx = 3, 3, 3, 5
+    H, W = By * bs, Bx * bs
+    res = _rand(rng, (P, C, H, W), -128, 128, np.int16, cuda)
+    mvy, mvx = (_rand(rng, (P, By, Bx), -sr - 1, sr + 2, np.int32, cuda)
+                for _ in range(2))
+    got = update.update_fields_batch(res, mvy, mvx, bs, 0.25, sr)
+    want = update._update_field(res, mvy, mvx, bs, 0.25, sr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_launch_counts(cuda):
     cuda_lib.reset_launches()
     z = torch.zeros((1, 3, 32, 32), dtype=torch.int16, device=cuda)
     mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32, device=cuda)
     cuda_mc.predict(z, z, mv, 16, 16)
     cuda_mc.update2(z, mv, 16, 4)
+    cuda_mc.update1(z, mv[:, 0, 0], mv[:, 0, 1], 16, 4)
     cuda_me.refine(z[:, 0], z[:, 0], z[:, 0], mv, 16, 0, 32, 32, 4)
     torch.cuda.synchronize()
     assert dict(cuda_lib.launches) == {"mc_predict": 1, "mc_update2": 1,
-                                       "me_refine": 1}
+                                       "mc_update1": 1, "me_refine": 1}
 
 
 def test_wrappers_reject_cpu_tensors():
@@ -82,6 +98,8 @@ def test_wrappers_reject_cpu_tensors():
         cuda_mc.predict(z, z, mv, 16, 16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_mc.update2(z, mv, 16, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mc.update1(z, mv[:, 0, 0], mv[:, 0, 1], 16, 4)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_me.refine(z[:, 0], z[:, 0], z[:, 0], mv, 16, 0, 32, 32, 4)
 
