@@ -9,11 +9,15 @@ Phases, one line each; any failure exits non-zero before the last line:
 1. set-up: the card's name and power limit, then the build of the CUDA
    kernels (``qsvc_tpu_torch/csrc``) and of the native EBCOT coder;
 2. kernel parity at the flagship shapes: K1 (spiral SAD refinement) at
-   every pyramid depth of temporal levels 1 and 4, K2 (MC predict), K3
-   (MC update, both directions) and K4 (MC update, one direction, at
-   search ranges 32 and 4) at 8 pairs of 1088x1920x3 — each kernel
-   against its plain PyTorch version on the same card, exact equality,
-   with CUDA-event times (median of several calls after a warm-up);
+   every pyramid depth of temporal levels 1 and 4; K2 (MC predict), K3
+   (MC update, both directions) and K4 (MC update, one direction, each
+   direction) at 8 pairs of 1088x1920x3 with random vectors up to
+   search range 32 + 1, then at each flagship level's own call, (pairs,
+   search range) = (8, 4), (4, 8), (2, 16), (1, 32), with the vectors of
+   one MCTF analysis of phase 4's first GOP and with random vectors up
+   to search range + 1 — each kernel against its plain PyTorch version
+   on the same card, exact equality, with CUDA-event times (batches of
+   calls back to back, after a warm-up) beside the kernel's bound;
 3. correctness on the card: the MCTF analysis of a small sequence on the
    card equals the plain CPU run, and a 1080p lossless 5/3 MCTF stream
    round-trips bit-exactly through its container bytes;
@@ -33,9 +37,16 @@ Phases, one line each; any failure exits non-zero before the last line:
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main path: phase 4 for K1-K3, phase
-5a for K4); the last line is ``{"ok": true, "device": {...}}`` with the
-number of cards the run used.  Without a CUDA device
-the script exits 1 and prints no result.
+5a for K4; times and bound at the first shape phase 2 names for it);
+the last line is ``{"ok": true, "device": {...}}`` with the number of
+cards the run used.  Without a CUDA device the script exits 1 and
+prints no result.
+
+A kernel's bound is the least time the card could take for its work:
+the larger of the bytes it must move (each input read once, each output
+written once) over the H100's 3.35 TB/s, and its integer operations over
+the int32 rate below.  No single PyTorch call computes K1-K4, so
+``library_ms`` is null.
 """
 
 import json
@@ -59,9 +70,19 @@ KERNEL_SOURCES = {
     "mc_update1": ("qsvc_tpu_torch/csrc/mc.cu",
                    "qsvc_tpu/ops/pallas_mc.py:297"),
 }
+#: the names phase 2 prints for the MC kernels
+_SHORT = {"mc_predict": "K2", "mc_update2": "K3", "mc_update1": "K4"}
 #: the kernels the sequential flagship (phase 4) must launch; K4 runs on
 #: the sharded path (phase 5a)
 SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2")
+#: H100 SXM device memory rate (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: int32 operations per second outside the tensor cores: 132 SMs x 64
+#: INT32 lanes x 1.98 GHz (the clock of the data sheet's 67 TFLOP/s fp32,
+#: 132 x 128 lanes x 2 flops)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: (pairs, search range) of the flagship's temporal levels 1-4
+FLAGSHIP_LEVELS = ((8, 4), (4, 8), (2, 16), (1, 32))
 
 
 def _ceil_half(x, times):
@@ -70,8 +91,11 @@ def _ceil_half(x, times):
     return x
 
 
-def _cuda_ms(fn, reps=7, warmup=2):
-    """Median CUDA-event time of one call, after a warm-up."""
+def _cuda_ms(fn, reps=5, batch=10, warmup=2):
+    """Time of one call: the median over ``reps`` runs of the CUDA-event
+    time of ``batch`` calls back to back, divided by ``batch``, after a
+    warm-up.  Back to back, the card does not wait for the wrapper's host
+    work unless that takes longer than the kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -80,15 +104,29 @@ def _cuda_ms(fn, reps=7, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
 def _max_err(a, b):
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by) of a kernel call: the larger of its bytes over
+    the memory rate and its integer operations over the int32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def phase_setup():
@@ -110,8 +148,8 @@ def phase_setup():
 
 
 def phase_kernel_parity(dev):
-    from qsvc_tpu_torch.mctf import me, predict, update
-    from qsvc_tpu_torch.ops import cuda_mc, cuda_me
+    from qsvc_tpu_torch.mctf import me
+    from qsvc_tpu_torch.ops import cuda_me
     rng = np.random.default_rng(0)
     H, W, bs = 1088, 1920, 64
     results = {}
@@ -131,70 +169,45 @@ def phase_kernel_parity(dev):
             pr, pv, nx_ = (rand_planes((P, ny, nx)) for _ in range(3))
             # motion estimation returns |mv| <= sr + 1: one past the pad
             mv = rand_planes((P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32)
-            got = mv + cuda_me.refine(pr, pv, nx_, mv, bs, 0, ny, nx,
-                                      sr).view(mv.shape)
+            delta = cuda_me.refine(pr, pv, nx_, mv, bs, 0, ny, nx, sr)
+            got = mv + delta.view(mv.shape)
             want = me._refine_level(pr, pv, nx_, mv, bs, 0, ny, nx, sr)
             err = _max_err(got, want)
             k1_err = max(k1_err, err)
             ms = _cuda_ms(lambda: cuda_me.refine(pr, pv, nx_, mv, bs, 0,
                                                  ny, nx, sr))
             pms = _cuda_ms(lambda: me._refine_level(pr, pv, nx_, mv, bs, 0,
-                                                    ny, nx, sr), reps=3)
+                                                    ny, nx, sr),
+                           reps=3, batch=2)
+            # 18 probes (9 per reference) of |a - b| summed over bs^2
+            # pixels: subtract, absolute value, add
+            bound = _bound(_nbytes(pr, pv, nx_, mv, delta),
+                           P * By * Bx * 18 * bs * bs * 3)
             print(f"  K1 P={P} sr={sr} depth {d} ({ny}x{nx}, {By}x{Bx} "
                   f"blocks): max_abs_err {err}, kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms", flush=True)
+                  f"{pms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
+                  flush=True)
             if k1_main is None:
-                k1_main = (ms, pms)
+                k1_main = (ms, pms, bound)
     results["me_refine"] = (k1_err,) + k1_main
 
-    # K2 and K3 at 8 pairs of 3 x 1088 x 1920, |mv| <= 33
-    P, C, sr = 8, 3, 32
+    # K2, K3 and K4 at 8 pairs of 3 x 1088 x 1920: random |mv| <= 33,
+    # then each flagship level's own call with its ME and random vectors
+    P, C = 8, 3
     By, Bx = H // bs, W // bs
     prev, nxt = rand_planes((P, C, H, W)), rand_planes((P, C, H, W))
-    mv = rand_planes((P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32)
-    got = cuda_mc.predict(prev, nxt, mv, bs, 4 * sr)
-    want = predict.predict_frame(prev, nxt, mv, bs, 4 * sr)
-    err = _max_err(got, want)
-    ms = _cuda_ms(lambda: cuda_mc.predict(prev, nxt, mv, bs, 4 * sr))
-    pms = _cuda_ms(lambda: predict.predict_frame(prev, nxt, mv, bs, 4 * sr),
-                   reps=3)
-    print(f"  K2 P={P} C={C} {H}x{W}: max_abs_err {err}, kernel {ms:.4f} "
-          f"ms, plain {pms:.4f} ms", flush=True)
-    results["mc_predict"] = (err, ms, pms)
-
     contrib = rand_planes((P, C, H, W), -32, 32)
-    got = cuda_mc.update2(contrib, mv, bs, sr)
-
-    def plain_update():
-        return torch.stack([update._update_sums(contrib, mv[:, d, 0],
-                                                mv[:, d, 1], bs, sr)
-                            for d in range(2)], dim=1)
-    err = _max_err(got, plain_update())
-    ms = _cuda_ms(lambda: cuda_mc.update2(contrib, mv, bs, sr))
-    pms = _cuda_ms(plain_update, reps=3)
-    print(f"  K3 P={P} C={C} {H}x{W}: max_abs_err {err}, kernel {ms:.4f} "
-          f"ms, plain {pms:.4f} ms", flush=True)
-    results["mc_update2"] = (err, ms, pms)
-
-    # K4, one direction as the sharded MCTF calls it, at the search
-    # ranges of flagship levels 4 (32) and 1 (4); the first is the row
-    k4 = []
-    for sr in (32, 4):
-        mvy, mvx = (rand_planes((P, By, Bx), -sr - 1, sr + 2, np.int32)
-                    for _ in range(2))
-
-        def kernel(mvy=mvy, mvx=mvx, sr=sr):
-            return cuda_mc.update1(contrib, mvy, mvx, bs, sr)
-
-        def plain(mvy=mvy, mvx=mvx, sr=sr):
-            return update._update_sums(contrib, mvy, mvx, bs, sr)
-        err = _max_err(kernel(), plain())
-        ms = _cuda_ms(kernel)
-        pms = _cuda_ms(plain, reps=3)
-        print(f"  K4 P={P} C={C} {H}x{W} sr={sr}: max_abs_err {err}, kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms", flush=True)
-        k4.append((err, ms, pms))
-    results["mc_update1"] = (max(e for e, _, _ in k4),) + k4[0][1:]
+    mv = rand_planes((P, 2, 2, By, Bx), -33, 34, np.int32)
+    mc = _mc_parity("P=8 sr=32 random", prev, nxt, contrib, mv, bs, 32)
+    results.update(mc)
+    for (P, sr), mv_me in zip(FLAGSHIP_LEVELS, _flagship_vectors(dev)):
+        mv_rand = rand_planes((P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32)
+        for kind, mv in (("ME", mv_me), ("random", mv_rand)):
+            lv = _mc_parity(f"level P={P} sr={sr} {kind}", prev[:P],
+                            nxt[:P], contrib[:P], mv, bs, sr)
+            for name, row in lv.items():
+                results[name] = (max(results[name][0], row[0]),) + \
+                    results[name][1:]
 
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
@@ -202,6 +215,82 @@ def phase_kernel_parity(dev):
     print("phase 2 kernel parity: ok (K1, K2, K3, K4 exact vs plain "
           "versions)", flush=True)
     return results
+
+
+def _flagship_vectors(dev):
+    """The vectors each temporal level of the flagship hands K2 and K3:
+    one MCTF analysis, on the card, of phase 4's first GOP."""
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.mctf import transform
+    cfg = _flagship_cfg()
+    gop = cfg.replace(GOPs=1)
+    vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                          seed=0)
+    planes = [torch.from_numpy(p[:gop.pictures]).to(dev)
+              for p in vid.planes()]
+    levels = transform.analyze(*planes, gop).levels
+    for lp, lev, (P, sr) in zip(gop.level_schedule(), levels,
+                                FLAGSHIP_LEVELS):
+        if (lev.mv.shape[0], lp.search_range) != (P, sr):
+            raise SystemExit(f"phase 2: level {lp.temporal_subband} has "
+                             f"{lev.mv.shape[0]} pairs at search range "
+                             f"{lp.search_range}, not {(P, sr)}")
+        print(f"  flagship level {lp.temporal_subband}: {P} pairs, "
+              f"{int(lev.is_B.sum())} B, max |mv| "
+              f"{int(lev.mv.abs().max())} at search range {sr}",
+              flush=True)
+    return [lev.mv.contiguous() for lev in levels]
+
+
+def _mc_parity(label, prev, nxt, contrib, mv, bs, sr):
+    """K2, K3 and K4 (each direction) on one set of vectors, each exact
+    against its plain version, with kernel, plain and bound times.
+    Returns {name: (max_abs_err, ms, plain_ms, (bound_ms, bound_by))}."""
+    from qsvc_tpu_torch.mctf import predict, update
+    from qsvc_tpu_torch.ops import cuda_mc
+    border = 4 * sr
+    k2 = cuda_mc.predict(prev, nxt, mv, bs, border)
+    rows = {"mc_predict": (
+        _max_err(k2, predict.predict_frame(prev, nxt, mv, bs, border)),
+        _cuda_ms(lambda: cuda_mc.predict(prev, nxt, mv, bs, border)),
+        _cuda_ms(lambda: predict.predict_frame(prev, nxt, mv, bs, border),
+                 reps=3, batch=2),
+        # add, halve, clip: a few operations per output
+        _bound(_nbytes(prev, nxt, mv, k2), 4 * k2.numel()))}
+
+    def plain_update():
+        return torch.stack([update._update_sums(contrib, mv[:, d, 0],
+                                                mv[:, d, 1], bs, sr)
+                            for d in range(2)], dim=1)
+    want = plain_update()
+    k3 = cuda_mc.update2(contrib, mv, bs, sr)
+    # each source pixel feeds at most one destination per direction, so
+    # the adds number at most one per output
+    rows["mc_update2"] = (
+        _max_err(k3, want),
+        _cuda_ms(lambda: cuda_mc.update2(contrib, mv, bs, sr)),
+        _cuda_ms(plain_update, reps=3, batch=2),
+        _bound(_nbytes(contrib, mv, k3), k3.numel()))
+
+    # K4, one direction as the sharded MCTF calls it: both directions
+    # equal the plain version (and so K3's halves); timed on direction 0
+    halves = [(mv[:, d, 0].contiguous(), mv[:, d, 1].contiguous())
+              for d in range(2)]
+    k4 = [cuda_mc.update1(contrib, my, mx, bs, sr) for my, mx in halves]
+    my, mx = halves[0]
+    rows["mc_update1"] = (
+        max(_max_err(k4[d], want[:, d]) for d in range(2)),
+        _cuda_ms(lambda: cuda_mc.update1(contrib, my, mx, bs, sr)),
+        _cuda_ms(lambda: update._update_sums(contrib, my, mx, bs, sr),
+                 reps=3, batch=2),
+        _bound(_nbytes(contrib, my, mx, k4[0]), k4[0].numel()))
+    print(f"  {label}: " + "; ".join(
+        f"{_SHORT[name]} max_abs_err {err}, kernel {ms:.4f} ms "
+        f"({bound[0] / ms:.0%} of its {bound[0]:.4f} ms {bound[1]} bound), "
+        f"plain {pms:.4f} ms"
+        for name, (err, ms, pms, bound) in rows.items()), flush=True)
+    return rows
+
 
 
 def phase_correctness(dev):
@@ -261,6 +350,7 @@ def phase_flagship(dev):
     t0 = time.time()
     api.compress_chunks(staged, gop_cfg, reversible=False, device=dev)
     warm_s = time.time() - t0
+    per_encode = dict(cuda_lib.launches)
     torch.cuda.synchronize()
     t0 = time.time()
     streams = api.compress_chunks(staged, gop_cfg, reversible=False,
@@ -268,8 +358,12 @@ def phase_flagship(dev):
     enc_s = time.time() - t0
     blobs = [s.to_bytes() for s in streams]
     parsed = [VideoStream.from_bytes(b) for b in blobs]
+    encoded = dict(cuda_lib.launches)
     for s in parsed:                        # decode warm-up
         api.expand(s, to_host=False, device=dev)
+    per_decode = {k: n - encoded.get(k, 0)
+                  for k, n in cuda_lib.launches.items()
+                  if n > encoded.get(k, 0)}
     t0 = time.time()
     recs = [api.expand(s, to_host=False, device=dev) for s in parsed]
     dec_s = time.time() - t0
@@ -288,7 +382,8 @@ def phase_flagship(dev):
           f"{vid.frames / enc_s:.3f} fps ({enc_s:.3f} s, warm-up "
           f"{warm_s:.3f} s), decode {vid.frames / dec_s:.3f} fps "
           f"({dec_s:.3f} s), {bpp:.5f} bpp, PSNR-Y/U/V {py:.3f}/{pu:.3f}/"
-          f"{pv:.3f} dB, launches {counts}", flush=True)
+          f"{pv:.3f} dB, launches {counts} (per {gops}-GOP encode "
+          f"{per_encode}, per decode {per_decode})", flush=True)
     if missing:
         raise SystemExit(f"phase 4: kernels never launched: {missing}")
     if not py >= 25.0:
@@ -457,7 +552,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],
-                "plain_ms": parity[name][2]}
+                "plain_ms": parity[name][2], "bound_ms": parity[name][3][0],
+                "bound_by": parity[name][3][1], "library_ms": None}
                for name, (src, replaces) in KERNEL_SOURCES.items()]
     bad = [k["name"] for k in kernels
            if k["launches"] == 0 or k["max_abs_err"] != 0]

@@ -5,9 +5,10 @@ Mirrors the layout of the JAX package (``ops/``, ``mctf/``, ``codec/``,
 JAX.  Tensors stay on the device the caller names on the ``api`` entry
 points; on a CUDA device the motion search, prediction and update run in
 the hand-written kernels under ``csrc/``, on the CPU in their plain
-PyTorch versions.  The native EBCOT coder is built from the JAX package's
-C++ source (``qsvc_tpu/native/ebcot.cpp``), so both packages write
-byte-identical containers.
+PyTorch versions.  The native EBCOT coder is built from the port's own
+copy of the JAX package's C++ source (``native/ebcot.cpp``, held
+byte-identical by a test), so both packages write byte-identical
+containers.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """ctypes bridge to the native EBCOT coder.
 
 Port of ``qsvc_tpu/codec/fast.py``.  The library is built on first use
-from the JAX package's C++ source, ``qsvc_tpu/native/ebcot.cpp``, read by
-path (one source of truth for the stream format, so both packages write
-byte-identical containers), with ``g++ -O3 -fopenmp`` into
-``qsvc_tpu_torch/_build/libqsvc.so``.  There is no Python fallback coder:
-a failed build raises with the compiler's output.
+from the port's own copy of the C++ coder, ``qsvc_tpu_torch/native/
+ebcot.cpp``, with ``g++ -O3 -fopenmp`` into
+``qsvc_tpu_torch/_build/libqsvc.so``.  The copy is byte-identical to the
+JAX package's ``qsvc_tpu/native/ebcot.cpp`` (a test holds the two
+together), so both packages write the same stream format and each
+decodes the other's containers.  There is no Python fallback coder: a
+failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ _BAND_CODE = {"LL": 0, "LH": 0, "HL": 1, "HH": 2}
 _MAX_PASSES = 3 * 64 + 1
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC_PATH = os.path.join(os.path.dirname(_PKG_DIR), "qsvc_tpu", "native",
-                        "ebcot.cpp")
+SRC_PATH = os.path.join(_PKG_DIR, "native", "ebcot.cpp")
 SO_PATH = os.path.join(_PKG_DIR, "_build", "libqsvc.so")
 
 _lib = None

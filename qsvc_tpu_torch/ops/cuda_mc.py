@@ -7,6 +7,11 @@ CUDA tensors only; anything else raises.  The plain PyTorch versions are
 ``mctf/predict.py::predict_frame`` and ``mctf/update.py::_update_field``,
 which ``predict_frames_batch`` / ``update_fields_batch2`` /
 ``update_fields_batch`` use for CPU tensors.
+
+The kernels run one CTA per (block, pair), so a launch takes at most
+:data:`MAX_PAIRS` pairs, and the update kernels index a plane with 32-bit
+integers, so its frame has at most :data:`MAX_PLANE` pixels; the wrappers
+raise beyond either.  Block size and search range are not limited.
 """
 
 from __future__ import annotations
@@ -14,6 +19,12 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+
+#: pairs per launch: the kernels' grid is (By * Bx, P), and CUDA caps its
+#: second dimension at 65535
+MAX_PAIRS = 65535
+#: pixels per frame of K3 and K4, which index a plane with int32
+MAX_PLANE = 2**31 - 1
 
 
 def _geometry(H: int, W: int, mv: torch.Tensor, block_size: int):
@@ -24,6 +35,14 @@ def _geometry(H: int, W: int, mv: torch.Tensor, block_size: int):
     return By, Bx
 
 
+def _check_limits(P: int, H: int, W: int, plane_limit: bool) -> None:
+    if P > MAX_PAIRS:
+        raise ValueError(f"{P} pairs: a launch takes at most {MAX_PAIRS}")
+    if plane_limit and H * W > MAX_PLANE:
+        raise ValueError(f"{H}x{W} frame: the update kernels take at most "
+                         f"{MAX_PLANE} pixels")
+
+
 def predict(refs_prev: torch.Tensor, refs_next: torch.Tensor,
             mv: torch.Tensor, block_size: int, border: int) -> torch.Tensor:
     """Bidirectional block prediction: (P, C, H, W) int16 references,
@@ -32,6 +51,7 @@ def predict(refs_prev: torch.Tensor, refs_next: torch.Tensor,
     plain version (4 * search_range)."""
     P, C, H, W = refs_prev.shape
     By, Bx = _geometry(H, W, mv, block_size)
+    _check_limits(P, H, W, plane_limit=False)
     cuda_lib.check_tensor("refs_prev", refs_prev, torch.int16, (P, C, H, W))
     cuda_lib.check_tensor("refs_next", refs_next, torch.int16, (P, C, H, W))
     cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx))
@@ -55,6 +75,7 @@ def update2(contrib: torch.Tensor, mv: torch.Tensor, block_size: int,
     int32 sums (direction 0 = PREV reference, 1 = NEXT)."""
     P, C, H, W = contrib.shape
     By, Bx = _geometry(H, W, mv, block_size)
+    _check_limits(P, H, W, plane_limit=True)
     cuda_lib.check_tensor("contrib", contrib, torch.int16, (P, C, H, W))
     cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx))
     K = -(-int(search_range) // block_size)
@@ -79,6 +100,7 @@ def update1(contrib: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
     sums."""
     P, C, H, W = contrib.shape
     By, Bx = _geometry(H, W, mv_y, block_size)
+    _check_limits(P, H, W, plane_limit=True)
     cuda_lib.check_tensor("contrib", contrib, torch.int16, (P, C, H, W))
     cuda_lib.check_tensor("mv_y", mv_y, torch.int32, (P, By, Bx))
     cuda_lib.check_tensor("mv_x", mv_x, torch.int32, (P, By, Bx))

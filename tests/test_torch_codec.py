@@ -2,6 +2,8 @@
 package — bp R-D simulation, DWT+quantize+tiling, block selection, tile
 scatter and decode."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -10,10 +12,31 @@ import jax.numpy as jnp
 
 from qsvc_tpu.codec import bp_device as jbp
 from qsvc_tpu.codec import frame_codec as jfc
-from qsvc_tpu_torch.codec import bp_device, frame_codec
+from qsvc_tpu_torch.codec import bp_device, fast, frame_codec
 from qsvc_tpu_torch.codec.frame_codec import slope_to_threshold
 
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_native_coder_source_is_the_jax_packages():
+    """The port builds the EBCOT coder from its own copy of the C++
+    source, which must stay byte-identical to the JAX package's: one
+    stream format for both packages."""
+    with open(os.path.join(ROOT, "qsvc_tpu", "native", "ebcot.cpp"),
+              "rb") as f:
+        want = f.read()
+    with open(fast.SRC_PATH, "rb") as f:
+        assert f.read() == want
+
+
+def test_native_coder_builds_from_the_port():
+    """Neither the source nor the library lies outside the port."""
+    port = os.path.realpath(os.path.join(ROOT, "qsvc_tpu_torch"))
+    for path in (fast.SRC_PATH, fast.SO_PATH):
+        path = os.path.realpath(path)
+        assert os.path.commonpath([path, port]) == port, path
 
 
 def _tiles(rng, K=48, cb=64):
