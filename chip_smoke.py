@@ -9,7 +9,11 @@ Phases, one line each; any failure exits non-zero before the last line:
 1. set-up: the card's name and power limit, then the build of the CUDA
    kernels (``qsvc_tpu_torch/csrc``) and of the native EBCOT coder;
 2. kernel parity at the flagship shapes: K1 (spiral SAD refinement) at
-   every pyramid depth of temporal levels 1 and 4; K2 (MC predict), K3
+   each of its 14 calls in one GOP (every pyramid depth of temporal
+   levels 1-4), then at level 1, depth 0 over the full int16 range (its
+   wrap-around path), timed as CUDA-graph replays (device time) and back
+   to back, beside one CTA per block (no cluster), with its summed time
+   and bound per GOP; K2 (MC predict), K3
    (MC update, both directions) and K4 (MC update, one direction, each
    direction) at 8 pairs of 1088x1920x3 with random vectors up to
    search range 32 + 1, then at each flagship level's own call, (pairs,
@@ -44,9 +48,11 @@ prints no result.
 
 A kernel's bound is the least time the card could take for its work:
 the larger of the bytes it must move (each input read once, each output
-written once) over the H100's 3.35 TB/s, and its integer operations over
-the int32 rate below.  No single PyTorch call computes K1-K4, so
-``library_ms`` is null.
+written once) over the H100's 3.35 TB/s, and its operations over their
+rate below: int32 for K2-K4, and for K1 two fp32 lane operations per SAD
+term (a subtraction and an addition of an absolute value, exact in fp32
+while no int16 difference wraps).  No single PyTorch call computes
+K1-K4, so ``library_ms`` is null.
 """
 
 import json
@@ -81,8 +87,12 @@ HBM_BYTES_PER_S = 3.35e12
 #: INT32 lanes x 1.98 GHz (the clock of the data sheet's 67 TFLOP/s fp32,
 #: 132 x 128 lanes x 2 flops)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: fp32 lane operations per second: 132 SMs x 128 FP32 lanes x 1.98 GHz
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 #: (pairs, search range) of the flagship's temporal levels 1-4
 FLAGSHIP_LEVELS = ((8, 4), (4, 8), (2, 16), (1, 32))
+#: the flagship's frame and block size
+FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS = 1088, 1920, 64
 
 
 def _ceil_half(x, times):
@@ -120,11 +130,40 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes, ops):
+def _graph_ms(fn, calls=20, reps=5):
+    """Device time of one call: ``calls`` calls captured in one CUDA
+    graph, replayed ``reps`` times; the median CUDA-event time of a
+    replay over ``calls``.  Unlike :func:`_cuda_ms` it holds no host
+    time, however short the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
     """(bound_ms, bound_by) of a kernel call: the larger of its bytes over
-    the memory rate and its integer operations over the int32 rate."""
+    the memory rate and its operations over ``ops_per_s``."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -147,49 +186,88 @@ def phase_setup():
     return smi
 
 
-def phase_kernel_parity(dev):
+def k1_calls(dev, refine, variants=None, seed=0):
+    """K1 at each of its 14 calls in one flagship GOP: every pyramid depth
+    of every temporal level, at the shapes ``me.estimate_sequence`` gives
+    it (random 0..255 planes, |mv| <= search range + 1, one past the
+    pad), then once more at level 1, depth 0, over the full int16 range
+    (the kernel's wrap-around path; not part of the GOP).
+
+    ``refine(pred, prev, next, mv, bs, ny, nx, sr)`` returns the refined
+    vectors; each call must equal ``me._refine_level`` exactly.
+    ``variants`` ({label: refine}) are checked and timed beside it.
+    Returns one dict per call: label, gop (a call of the GOP), max_abs_err,
+    ms (device time, CUDA graph), eager_ms (back-to-back calls), plain_ms,
+    bound (ms, by) and {label: ms} of the variants."""
     from qsvc_tpu_torch.mctf import me
+    rng = np.random.default_rng(seed)
+    H, W, bs = FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS
+    calls = [(lvl, P, sr, d, 0, 256)
+             for lvl, (P, sr) in enumerate(FLAGSHIP_LEVELS, 1)
+             for d in range(max(int(round(np.log2(sr))) - 1, 0) + 1)]
+    calls.append((1, 8, 4, 0, -2**15, 2**15))
+    rows = []
+    for lvl, P, sr, d, lo, hi in calls:
+        ny, nx = _ceil_half(H, d), _ceil_half(W, d)
+        By, Bx = _ceil_half(H // bs, d), _ceil_half(W // bs, d)
+        pr, pv, nxt = (torch.from_numpy(rng.integers(
+            lo, hi, (P, ny, nx)).astype(np.int16)).to(dev) for _ in range(3))
+        mv = torch.from_numpy(rng.integers(
+            -sr - 1, sr + 2, (P, 2, 2, By, Bx)).astype(np.int32)).to(dev)
+        want = me._refine_level(pr, pv, nxt, mv, bs, 0, ny, nx, sr)
+        fns = {"": refine, **(variants or {})}
+        err = max(_max_err(f(pr, pv, nxt, mv, bs, ny, nx, sr), want)
+                  for f in fns.values())
+        ms = {k: _graph_ms(lambda f=f: f(pr, pv, nxt, mv, bs, ny, nx, sr))
+              for k, f in fns.items()}
+        eager = _cuda_ms(lambda: refine(pr, pv, nxt, mv, bs, ny, nx, sr))
+        plain = _cuda_ms(lambda: me._refine_level(pr, pv, nxt, mv, bs, 0,
+                                                  ny, nx, sr),
+                         reps=3, batch=2)
+        # the least work: 18 probes (9 per reference) of |a - b| summed
+        # over bs^2 pixels, one subtraction and one addition of an
+        # absolute value per term, both exact on the fp32 lanes while the
+        # int16 differences cannot wrap (fp32 add with an |x| operand);
+        # the bytes: the three planes, mv and the refined mv, each once
+        bound = _bound(_nbytes(pr, pv, nxt, mv, want),
+                       P * By * Bx * 18 * bs * bs * 2, FP32_OPS_PER_S)
+        label = (f"L{lvl} P={P} sr={sr} depth {d}"
+                 + (" full int16" if lo < 0 else ""))
+        rows.append({"label": label, "gop": lo == 0, "max_abs_err": err,
+                     "ms": ms.pop(""), "eager_ms": eager, "plain_ms": plain,
+                     "bound": bound, "variants": ms})
+        r = rows[-1]
+        extra = "".join(f", {k} {v:.4f} ms" for k, v in ms.items())
+        print(f"  K1 {label} ({ny}x{nx}, {By}x{Bx} blocks, {P * By * Bx} "
+              f"blocks in all): max_abs_err {err}, kernel {r['ms']:.4f} ms "
+              f"({bound[0] / r['ms']:.0%} of its {bound[0]:.4f} ms "
+              f"{bound[1]} bound), back to back {eager:.4f} ms{extra}, "
+              f"plain {plain:.4f} ms", flush=True)
+    gop = [r for r in rows if r["gop"]]
+    print(f"  K1 per flagship GOP ({len(gop)} calls): kernel "
+          f"{sum(r['ms'] for r in gop):.4f} ms, back to back "
+          f"{sum(r['eager_ms'] for r in gop):.4f} ms, bound "
+          f"{sum(r['bound'][0] for r in gop):.4f} ms", flush=True)
+    return rows
+
+
+def phase_kernel_parity(dev):
     from qsvc_tpu_torch.ops import cuda_me
     rng = np.random.default_rng(0)
-    H, W, bs = 1088, 1920, 64
+    H, W, bs = FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS
     results = {}
 
     def rand_planes(shape, lo=0, hi=256, dtype=np.int16):
         return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)
                                 ).to(dev)
 
-    # K1 at every pyramid depth of temporal level 1 (P=8, search 4) and
-    # level 4 (P=1, search 32), as estimate_sequence calls it
-    k1_err, k1_main = 0.0, None
-    for P, sr in ((8, 4), (1, 32)):
-        depths = max(int(round(np.log2(sr))) - 1, 0)
-        for d in range(depths + 1):
-            ny, nx = _ceil_half(H, d), _ceil_half(W, d)
-            By, Bx = _ceil_half(H // bs, d), _ceil_half(W // bs, d)
-            pr, pv, nx_ = (rand_planes((P, ny, nx)) for _ in range(3))
-            # motion estimation returns |mv| <= sr + 1: one past the pad
-            mv = rand_planes((P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32)
-            delta = cuda_me.refine(pr, pv, nx_, mv, bs, 0, ny, nx, sr)
-            got = mv + delta.view(mv.shape)
-            want = me._refine_level(pr, pv, nx_, mv, bs, 0, ny, nx, sr)
-            err = _max_err(got, want)
-            k1_err = max(k1_err, err)
-            ms = _cuda_ms(lambda: cuda_me.refine(pr, pv, nx_, mv, bs, 0,
-                                                 ny, nx, sr))
-            pms = _cuda_ms(lambda: me._refine_level(pr, pv, nx_, mv, bs, 0,
-                                                    ny, nx, sr),
-                           reps=3, batch=2)
-            # 18 probes (9 per reference) of |a - b| summed over bs^2
-            # pixels: subtract, absolute value, add
-            bound = _bound(_nbytes(pr, pv, nx_, mv, delta),
-                           P * By * Bx * 18 * bs * bs * 3)
-            print(f"  K1 P={P} sr={sr} depth {d} ({ny}x{nx}, {By}x{Bx} "
-                  f"blocks): max_abs_err {err}, kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})",
-                  flush=True)
-            if k1_main is None:
-                k1_main = (ms, pms, bound)
-    results["me_refine"] = (k1_err,) + k1_main
+    def refine(pr, pv, nxt, mv, bs, ny, nx, sr, split=None):
+        return cuda_me.refine(pr, pv, nxt, mv, bs, 0, ny, nx, sr, split)
+    # beside the wrapper's choice of cluster size: one CTA per block
+    k1 = k1_calls(dev, refine, {"one CTA per block": lambda *a: refine(
+        *a, split=1)})
+    results["me_refine"] = (max(r["max_abs_err"] for r in k1), k1[0]["ms"],
+                            k1[0]["plain_ms"], k1[0]["bound"])
 
     # K2, K3 and K4 at 8 pairs of 3 x 1088 x 1920: random |mv| <= 33,
     # then each flagship level's own call with its ME and random vectors

@@ -74,6 +74,8 @@
 
 #include <algorithm>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -82,15 +84,6 @@ constexpr int kChunk = 64;
 // components one register sum of the update covers (C = 3 on the main
 // path: all of them)
 constexpr int kCompGroup = 3;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// where lax.dynamic_slice starts a win-long slice of a size-long axis
-__device__ __forceinline__ int slice_start(int s, int size, int win) {
-  return clampi(s < 0 ? s + size : s, 0, size - win);
-}
 
 // (TX, TY) threads over a block: TX column groups of `group` pixels, TY
 // rows, at most kThreads in all
@@ -304,10 +297,6 @@ mc_update_kernel(const int16_t* __restrict__ contrib,
       }
     }
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

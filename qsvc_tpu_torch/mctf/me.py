@@ -126,11 +126,9 @@ def _refine_level_batch(preds: torch.Tensor, prevs: torch.Tensor,
     if not mv.is_cuda:
         return _refine_level(preds, prevs, nexts, mv, block_size, border,
                              ny, nx, max_mv)
-    mv = mv.contiguous()
-    d = cuda_me.refine(preds.contiguous(), prevs.contiguous(),
-                       nexts.contiguous(), mv, block_size, border, ny, nx,
-                       max_mv)
-    return mv + d.view(mv.shape)
+    return cuda_me.refine(preds.contiguous(), prevs.contiguous(),
+                          nexts.contiguous(), mv, block_size, border, ny, nx,
+                          max_mv)
 
 
 def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,

@@ -82,7 +82,8 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(_build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.qsvc_me_refine.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+            lib.qsvc_me_refine.argtypes = ([vp] * 4 + [ci] * 5 + [vp]
+                                           + [ci] * 10 + [vp])
             lib.qsvc_mc_predict.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [vp]
             lib.qsvc_mc_update2.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
             lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]
@@ -101,8 +102,9 @@ def build_seconds() -> float:
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                 shape) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of dtype/shape."""
+                 shape, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of dtype/shape, contiguous
+    unless ``contiguous`` is False."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -110,7 +112,7 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 

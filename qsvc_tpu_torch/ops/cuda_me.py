@@ -5,6 +5,12 @@ refine_pallas``).
 Takes CUDA tensors only and raises on anything else; the plain PyTorch
 version is ``mctf/me.py::_refine_level``, which ``me._refine_level_batch``
 uses for CPU tensors.
+
+The kernel runs one CTA per (block, pair), or a cluster of ``split`` CTAs
+per block that share its rows; its grid is (Bx * split, By, P), so a
+launch takes at most :data:`MAX_PAIRS` pairs and block rows.  A thread
+owns one column of a block, so blocks are at most :data:`MAX_BLOCK`
+pixels wide.
 """
 
 from __future__ import annotations
@@ -13,32 +19,83 @@ import torch
 
 from . import cuda_lib
 
+#: CTAs of one thread-block cluster (the portable cluster size)
+MAX_SPLIT = 8
+#: largest block size: a thread of the kernel owns one of its columns
+MAX_BLOCK = 256
+#: pairs and block rows per launch: CUDA caps a grid's second and third
+#: dimensions at 65535
+MAX_PAIRS = 65535
+#: shared memory one CTA may use on the H100 (227 KB)
+MAX_SMEM = 232448
+
+
+def smem_bytes(block_size: int, split: int) -> int:
+    """Shared memory of a CTA owning ceil(block_size / split) rows, as
+    ``csrc/me_refine.cu`` lays it out: the rows of the predicted block and
+    of both windows as int16, each staged from a 16-byte aligned column
+    (7 more values, rounded up to 8)."""
+    rows = -(-block_size // split)
+
+    def staged_row(width):
+        return -(-(width + 7) // 8) * 8
+    return 2 * (rows * staged_row(block_size)
+                + 2 * (rows + 2) * staged_row(block_size + 2))
+
+
+def auto_split(n_blocks: int, block_size: int, sms: int) -> int:
+    """CTAs per block: a cluster of 8 where even 8 CTAs per block leave
+    SMs idle (the flagship's 4- and 12-block calls, where it saves about
+    1 us of a 6 us call on the H100; at 24 and 40 blocks, 5 and 3 CTAs per
+    block gained nothing), else one."""
+    top = min(MAX_SPLIT, block_size)
+    return top if n_blocks * top <= sms else 1
+
 
 def refine(preds: torch.Tensor, prevs: torch.Tensor, nexts: torch.Tensor,
            mv: torch.Tensor, block_size: int, border: int, ny: int, nx: int,
-           max_mv: int) -> torch.Tensor:
+           max_mv: int, split: int | None = None) -> torch.Tensor:
     """One spiral refinement of every block of every pair.
 
-    ``preds``/``prevs``/``nexts``: (P, H', W') int16 with active region
-    (ny, nx); ``mv``: (P, 2, 2, By, Bx) int32.  Returns the (P, 4, By, Bx)
-    int32 winning deltas ``[dy_prev, dx_prev, dy_next, dx_next]``."""
+    ``preds``/``prevs``/``nexts``: contiguous (P, H', W') int16 with
+    active region (ny, nx); ``mv``: (P, 2, 2, By, Bx) int32, any strides
+    (a slice of a larger field is read in place).  Returns the refined
+    vectors, ``mv`` plus the winning ±1 deltas, as a new contiguous
+    (P, 2, 2, By, Bx) int32 tensor.  ``split``: CTAs that share each
+    block's rows (1 to 8; default: :func:`auto_split`)."""
     if border != 0:
         raise NotImplementedError("K1 supports border_size == 0 only")
+    if not 1 <= block_size <= MAX_BLOCK:
+        raise ValueError(f"block size {block_size}: K1 takes 1 to "
+                         f"{MAX_BLOCK}")
+    if split is not None and not 1 <= split <= min(MAX_SPLIT, block_size):
+        raise ValueError(f"split {split}: K1 takes 1 to "
+                         f"{min(MAX_SPLIT, block_size)} CTAs per block")
     P, H, W = preds.shape
     By, Bx = mv.shape[-2], mv.shape[-1]
+    if max(P, By) > MAX_PAIRS:
+        raise ValueError(f"{P} pairs of {By} block rows: a launch takes at "
+                         f"most {MAX_PAIRS} pairs and block rows")
     for name, t in (("preds", preds), ("prevs", prevs), ("nexts", nexts)):
         cuda_lib.check_tensor(name, t, torch.int16, (P, H, W))
-    cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx))
+    cuda_lib.check_tensor("mv", mv, torch.int32, (P, 2, 2, By, Bx),
+                          contiguous=False)
     if not (0 < ny <= H and 0 < nx <= W):
         raise ValueError(f"active region {(ny, nx)} outside {(H, W)}")
-    out = torch.empty((P, 4, By, Bx), dtype=torch.int32, device=mv.device)
+    if split is None:
+        sms = torch.cuda.get_device_properties(mv.device).multi_processor_count
+        split = auto_split(P * By * Bx, block_size, sms)
+    if smem_bytes(block_size, split) > MAX_SMEM:
+        raise ValueError(f"block size {block_size} at split {split} needs "
+                         f"more than {MAX_SMEM} bytes of shared memory")
+    out = torch.empty((P, 2, 2, By, Bx), dtype=torch.int32, device=mv.device)
     if P * By * Bx == 0:
         return out
     lib = cuda_lib.load()
     with torch.cuda.device(mv.device):
         err = lib.qsvc_me_refine(
             cuda_lib.ptr(preds), cuda_lib.ptr(prevs), cuda_lib.ptr(nexts),
-            cuda_lib.ptr(mv), cuda_lib.ptr(out), P, H, W, ny, nx, By, Bx,
-            block_size, max_mv, cuda_lib.stream_ptr(mv))
+            cuda_lib.ptr(mv), *mv.stride(), cuda_lib.ptr(out), P, H, W, ny,
+            nx, By, Bx, block_size, max_mv, split, cuda_lib.stream_ptr(mv))
         cuda_lib.launched("me_refine", err)
     return out

@@ -41,6 +41,95 @@ def test_k1_matches_plain(cuda, P, ny, nx, By, Bx, bs, sr):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _k1_planes(rng, kind, shape, device):
+    """Planes of 0..255 ("u8"), of the full int16 range ("int16": the
+    kernel's wrap-around path) or of one value ("flat": every probe
+    ties, so the spiral order decides)."""
+    if kind == "flat":
+        return [torch.full(shape, 77, dtype=torch.int16, device=device)
+                for _ in range(3)]
+    lo, hi = (0, 256) if kind == "u8" else (-2**15, 2**15)
+    return [_rand(rng, shape, lo, hi, np.int16, device) for _ in range(3)]
+
+
+def _k1_vectors(rng, P, By, Bx, sr, device):
+    """|mv| <= sr + 1, every other block at +-(sr + 1)."""
+    mv = rng.integers(-sr - 1, sr + 2, (P, 2, 2, By, Bx))
+    edge = rng.choice([-sr - 1, sr + 1], mv.shape)
+    mv[..., ::2] = edge[..., ::2]
+    return torch.from_numpy(mv.astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["u8", "int16", "flat"])
+@pytest.mark.parametrize("P", [1, 3, 8])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_k1_exact(cuda, bs, P, kind):
+    """K1 == me._refine_level at every block size: a 3x4 block grid over
+    planes of the grid's size whose active region is smaller and odd
+    (a coarse pyramid depth), vectors up to +-(sr + 1) and at the
+    edges."""
+    rng = np.random.default_rng(bs * 10 + P)
+    By, Bx, sr = 3, 4, max(2, bs // 2)
+    ny, nx = 2 * bs + bs // 2 + 1, 3 * bs + 3
+    planes = _k1_planes(rng, kind, (P, By * bs, Bx * bs), cuda)
+    mv = _k1_vectors(rng, P, By, Bx, sr, cuda)
+    got = cuda_me.refine(*planes, mv, bs, 0, ny, nx, sr)
+    want = me._refine_level(*planes, mv, bs, 0, ny, nx, sr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["u8", "int16"])
+@pytest.mark.parametrize("split", range(1, cuda_me.MAX_SPLIT + 1))
+def test_k1_exact_at_each_split(cuda, split, kind):
+    """Each cluster size: the CTAs of a block each sum their rows, rank 0
+    adds them (level 4, depth 4 of the flagship: 2x2 blocks of 64)."""
+    rng = np.random.default_rng(split)
+    planes = _k1_planes(rng, kind, (1, 68, 120), cuda)
+    mv = _k1_vectors(rng, 1, 2, 2, 32, cuda)
+    got = cuda_me.refine(*planes, mv, 64, 0, 68, 120, 32, split=split)
+    want = me._refine_level(*planes, mv, 64, 0, 68, 120, 32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_k1_rejects_blocks_past_shared_memory(cuda):
+    """A 200-pixel block's rows fit in one CTA's shared memory only when
+    a cluster splits them."""
+    z = torch.zeros((1, 200, 200), dtype=torch.int16, device=cuda)
+    mv = torch.zeros((1, 2, 2, 1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_me.refine(z, z, z, mv, 200, 0, 200, 200, 4, split=1)
+    want = me._refine_level(z, z, z, mv, 200, 0, 200, 200, 4)
+    torch.testing.assert_close(cuda_me.refine(z, z, z, mv, 200, 0, 200, 200,
+                                              4, split=2),
+                               want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_k1_reads_mv_in_place_and_unaligned_planes(cuda):
+    """A slice of a larger field, as estimate_sequence passes at coarse
+    depths, is read through its strides; planes off the 16-byte grid and
+    of odd width take the clamped loads."""
+    rng = np.random.default_rng(11)
+    P, By, Bx, bs, sr, ny, nx = 3, 3, 4, 16, 8, 37, 59
+    field = _k1_vectors(rng, P, By + 2, Bx + 3, sr, cuda)
+    mv = field[..., :By, :Bx]
+    assert not mv.is_contiguous()
+    planes = []
+    for p in _k1_planes(rng, "u8", (P, ny, nx), cuda):
+        flat = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda)
+        view = flat[1:].view(p.shape)
+        view.copy_(p)
+        planes.append(view)
+    want = me._refine_level(*planes, mv, bs, 0, ny, nx, sr)
+    got = me._refine_level_batch(*planes, mv, bs, 0, ny, nx, sr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(cuda_me.refine(*planes, mv, bs, 0, ny, nx, sr),
+                               want, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bs,sr", [(16, 4), (16, 16), (8, 12)])
 def test_k2_k3_match_plain(cuda, bs, sr):
@@ -177,6 +266,53 @@ def test_k1_rejects_border():
     mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         cuda_me.refine(z, z, z, mv, 16, 1, 32, 32, 4)
+
+
+@pytest.mark.parametrize("split", [0, cuda_me.MAX_SPLIT + 1, 17])
+def test_k1_rejects_bad_split(split):
+    """1 to 8 CTAs per block, and no more than the block has rows (bs
+    16: split 17 is past both)."""
+    z = torch.zeros((1, 32, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="split"):
+        cuda_me.refine(z, z, z, mv, 16, 0, 32, 32, 4, split=split)
+
+
+@pytest.mark.parametrize("bs", [0, cuda_me.MAX_BLOCK + 1])
+def test_k1_rejects_block_size(bs):
+    """A thread owns one column: blocks of 1 to 256 pixels."""
+    z = torch.zeros((1, 512, 512), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="block size"):
+        cuda_me.refine(z, z, z, mv, bs, 0, 512, 512, 4)
+
+
+def test_k1_rejects_too_many_pairs():
+    """The grid's third dimension holds the pairs; shapes only (meta
+    tensors), so the check runs before any device is touched."""
+    P = cuda_me.MAX_PAIRS + 1
+    planes = torch.empty((P, 16, 16), dtype=torch.int16, device="meta")
+    mv = torch.empty((P, 2, 2, 1, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="pairs"):
+        cuda_me.refine(planes, planes, planes, mv, 16, 0, 16, 16, 4)
+
+
+@pytest.mark.parametrize("n_blocks,bs,want", [
+    (4080, 64, 1), (510, 64, 1), (135, 64, 1), (40, 64, 1), (24, 64, 1),
+    (16, 64, 8), (12, 64, 8), (4, 64, 8), (1, 4, 4)])
+def test_k1_auto_split(n_blocks, bs, want):
+    """Clusters of 8 only where 8 CTAs per block still fit on the 132
+    SMs, and never more CTAs than the block has rows."""
+    assert cuda_me.auto_split(n_blocks, bs, 132) == want
+
+
+def test_k1_smem_layout():
+    """int16 rows staged from a 16-byte aligned column: at bs 64 the block
+    (64 x 72) and two windows (66 x 80) take 30,336 bytes; a split CTA
+    owns ceil(64 / S) rows."""
+    assert cuda_me.smem_bytes(64, 1) == 2 * (64 * 72 + 2 * 66 * 80)
+    assert cuda_me.smem_bytes(64, 3) == 2 * (22 * 72 + 2 * 24 * 80)
+    assert cuda_me.smem_bytes(6, 1) == 2 * (6 * 16 + 2 * 8 * 16)
 
 
 def test_predict_rejects_off_grid_frames():

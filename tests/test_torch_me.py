@@ -78,6 +78,35 @@ def test_refine_plain_matches_lax(bs, ny, nx, max_mv, reach):
                                   np.asarray(want))
 
 
+@pytest.mark.parametrize("kind", ["int16", "flat", "two_values"])
+def test_refine_plain_matches_lax_wrap_and_ties(kind):
+    """The semantics K1 keeps: over the full int16 range the per-pixel
+    |a - b| wraps in int16 (and |-32768| stays negative) before the int32
+    sums; on flat or two-valued planes most probes tie and the spiral
+    order (later probe wins, (0,0) last) decides."""
+    rng = np.random.default_rng({"int16": 21, "flat": 22,
+                                 "two_values": 23}[kind])
+    bs, ny, nx, max_mv = 16, 40, 56, 4
+    By, Bx = -(-ny // bs), -(-nx // bs)
+    if kind == "int16":
+        planes = [rng.integers(-2**15, 2**15, (P, ny, nx)).astype(np.int16)
+                  for _ in range(3)]
+        planes[0][:, :4, :4] = -2**15           # |(-32768) - 0| wraps
+        planes[1][:, :8, :8] = 0
+    elif kind == "flat":
+        planes = [np.full((P, ny, nx), 77, np.int16) for _ in range(3)]
+    else:
+        planes = [rng.choice([3, 9], (P, ny, nx)).astype(np.int16)
+                  for _ in range(3)]
+    mv = rng.integers(-max_mv - 1, max_mv + 2,
+                      (P, 2, 2, By, Bx)).astype(np.int32)
+    want = jax.vmap(lambda a, b, c, m: jme._refine_level(
+        a, b, c, m, bs, 0, ny, nx, max_mv))(
+        *(jnp.asarray(p) for p in planes), jnp.asarray(mv))
+    np.testing.assert_array_equal(_port(planes, mv, ny, nx, max_mv, bs),
+                                  np.asarray(want))
+
+
 def test_refine_plain_border_matches_lax():
     """border_size > 0 runs only in the plain version (K1 raises)."""
     rng = np.random.default_rng(5)
