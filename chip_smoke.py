@@ -21,10 +21,18 @@ Phases, one line each; any failure exits non-zero before the last line:
    one MCTF analysis of phase 4's first GOP and with random vectors up
    to search range + 1 — each kernel against its plain PyTorch version
    on the same card, exact equality, with CUDA-event times (batches of
-   calls back to back, after a warm-up) beside the kernel's bound;
-3. correctness on the card: the MCTF analysis of a small sequence on the
-   card equals the plain CPU run, and a 1080p lossless 5/3 MCTF stream
-   round-trips bit-exactly through its container bytes;
+   calls back to back, after a warm-up) beside the kernel's bound; then
+   K1 where its window is wider: the sub-pixel calls of a flagship GOP
+   at accuracies 1-3 (blocks of 128, 256 and 512 on frames interpolated
+   2, 4 and 8 times, at each level's pairs and cap), one block of 1024
+   and borders 1-4 at level 1, with the per-GOP sums at each accuracy;
+   and K2 at the sub-pixel prediction's blocks of 64 << a, a = 1-3 (at
+   a = 3 the plain version runs on 2 of the 8 pairs, for memory);
+3. correctness on the card: the MCTF analysis and synthesis of a small
+   sequence on the card equal the plain CPU run, whole-pixel, at
+   sub-pixel accuracies 1-3, with OLA (alone and with a = 1) and with a
+   border of 2, and a 1080p lossless 5/3 MCTF stream round-trips
+   bit-exactly through its container bytes;
 4. the flagship: 1920x1088, GOP 16 (TRLs=5), 9/7 at slope 45000, 4 GOPs
    staged on the card, encoded (warm-up + timed) and decoded to
    device-resident uint8, with the kernel launch counts of that run;
@@ -37,7 +45,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    processes, both on this card (NCCL takes one rank per card), encodes
    2 GOPs of 1920x1088 losslessly; both ranks' ``compress_distributed``
    bytes equal the sequential encode's, their ``synthesize_sharded``
-   frames equal the sequential synthesis, and each rank launched K4.
+   frames equal the sequential synthesis, and each rank launched K4;
+6. the sub-pixel flagship: phase 4's run at sub-pixel accuracy 2 (4
+   GOPs, fps, bpp, PSNR and launches; fails if K1-K3 never launch or
+   PSNR-Y < 25 dB), then one GOP at accuracy 3 with OLA (block_overlaping
+   8) and border_size 2, lossless, which must round-trip bit-exactly
+   through its container bytes.
+
+The whole run takes 75-85 s on an H100 (phase 2's wide K1 calls and
+their plain versions are the largest part of what phases 2, 3 and 6
+added).
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main path: phase 4 for K1-K3, phase
@@ -93,6 +110,13 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 FLAGSHIP_LEVELS = ((8, 4), (4, 8), (2, 16), (1, 32))
 #: the flagship's frame and block size
 FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS = 1088, 1920, 64
+#: phase 3's MCTF configurations (over 256x128, block 32, search 8)
+MCTF_CASES = {"whole-pixel": {}, "a=1": dict(subpixel_accuracy=1),
+              "a=2": dict(subpixel_accuracy=2),
+              "a=3": dict(subpixel_accuracy=3),
+              "OLA d=4": dict(block_overlaping=4),
+              "OLA d=4 a=1": dict(block_overlaping=4, subpixel_accuracy=1),
+              "border 2": dict(border_size=2)}
 
 
 def _ceil_half(x, times):
@@ -123,6 +147,8 @@ def _cuda_ms(fn, reps=5, batch=10, warmup=2):
 
 
 def _max_err(a, b):
+    if torch.equal(a, b):           # no temporaries for the large stacks
+        return 0.0
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -186,6 +212,51 @@ def phase_setup():
     return smi
 
 
+def _k1_row(label, planes, mv, bs, border, ny, nx, cap, refine,
+            variants=None, eager=True):
+    """K1 at one call: exact against ``me._refine_level``, device time as
+    CUDA-graph replays, back-to-back time (if ``eager``), the plain
+    version's time and the bound; prints one line, returns its dict."""
+    from qsvc_tpu_torch.mctf import me
+    pr, pv, nxt = planes
+    P, By, Bx = mv.shape[0], mv.shape[-2], mv.shape[-1]
+    win = bs + 2 * border
+    want = me._refine_level(pr, pv, nxt, mv, bs, border, ny, nx, cap)
+    fns = {"": refine, **(variants or {})}
+    err = max(_max_err(f(pr, pv, nxt, mv, bs, ny, nx, cap, border), want)
+              for f in fns.values())
+    ms = {k: _graph_ms(lambda f=f: f(pr, pv, nxt, mv, bs, ny, nx, cap,
+                                     border))
+          for k, f in fns.items()}
+    eager_ms = (_cuda_ms(lambda: refine(pr, pv, nxt, mv, bs, ny, nx, cap,
+                                        border)) if eager else None)
+    # windows of more than 2^28 pixels in all (the sub-pixel steps 2-3):
+    # the plain version takes up to 0.3 s a call there, so it runs once
+    big = P * By * Bx * win * win > 2**28
+    plain = _cuda_ms(lambda: me._refine_level(pr, pv, nxt, mv, bs, border,
+                                              ny, nx, cap),
+                     reps=1 if big else 3, batch=1 if big else 2,
+                     warmup=0 if big else 2)
+    # the least work: 18 probes (9 per reference) of |a - b| summed over
+    # the win^2 pixels of each window, one subtraction and one addition
+    # of an absolute value per term, both exact on the fp32 lanes while
+    # the int16 differences cannot wrap (fp32 add with an |x| operand);
+    # the bytes: the three planes, mv and the refined mv, each once
+    bound = _bound(_nbytes(pr, pv, nxt, mv, want),
+                   P * By * Bx * 18 * win * win * 2, FP32_OPS_PER_S)
+    row = {"label": label, "max_abs_err": err, "ms": ms.pop(""),
+           "eager_ms": eager_ms, "plain_ms": plain, "bound": bound,
+           "variants": ms}
+    extra = "".join(f", {k} {v:.4f} ms" for k, v in ms.items())
+    b2b = f", back to back {eager_ms:.4f} ms" if eager else ""
+    print(f"  K1 {label} ({ny}x{nx}, {By}x{Bx} blocks of {bs}, border "
+          f"{border}, {P * By * Bx} blocks in all): max_abs_err {err}, "
+          f"kernel {row['ms']:.4f} ms ({bound[0] / row['ms']:.0%} of its "
+          f"{bound[0]:.4f} ms {bound[1]} bound){b2b}{extra}, plain "
+          f"{plain:.4f} ms", flush=True)
+    return row
+
+
 def k1_calls(dev, refine, variants=None, seed=0):
     """K1 at each of its 14 calls in one flagship GOP: every pyramid depth
     of every temporal level, at the shapes ``me.estimate_sequence`` gives
@@ -193,13 +264,12 @@ def k1_calls(dev, refine, variants=None, seed=0):
     pad), then once more at level 1, depth 0, over the full int16 range
     (the kernel's wrap-around path; not part of the GOP).
 
-    ``refine(pred, prev, next, mv, bs, ny, nx, sr)`` returns the refined
-    vectors; each call must equal ``me._refine_level`` exactly.
+    ``refine(pred, prev, next, mv, bs, ny, nx, sr, border)`` returns the
+    refined vectors; each call must equal ``me._refine_level`` exactly.
     ``variants`` ({label: refine}) are checked and timed beside it.
     Returns one dict per call: label, gop (a call of the GOP), max_abs_err,
     ms (device time, CUDA graph), eager_ms (back-to-back calls), plain_ms,
     bound (ms, by) and {label: ms} of the variants."""
-    from qsvc_tpu_torch.mctf import me
     rng = np.random.default_rng(seed)
     H, W, bs = FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS
     calls = [(lvl, P, sr, d, 0, 256)
@@ -210,44 +280,71 @@ def k1_calls(dev, refine, variants=None, seed=0):
     for lvl, P, sr, d, lo, hi in calls:
         ny, nx = _ceil_half(H, d), _ceil_half(W, d)
         By, Bx = _ceil_half(H // bs, d), _ceil_half(W // bs, d)
-        pr, pv, nxt = (torch.from_numpy(rng.integers(
-            lo, hi, (P, ny, nx)).astype(np.int16)).to(dev) for _ in range(3))
+        planes = [torch.from_numpy(rng.integers(
+            lo, hi, (P, ny, nx)).astype(np.int16)).to(dev) for _ in range(3)]
         mv = torch.from_numpy(rng.integers(
             -sr - 1, sr + 2, (P, 2, 2, By, Bx)).astype(np.int32)).to(dev)
-        want = me._refine_level(pr, pv, nxt, mv, bs, 0, ny, nx, sr)
-        fns = {"": refine, **(variants or {})}
-        err = max(_max_err(f(pr, pv, nxt, mv, bs, ny, nx, sr), want)
-                  for f in fns.values())
-        ms = {k: _graph_ms(lambda f=f: f(pr, pv, nxt, mv, bs, ny, nx, sr))
-              for k, f in fns.items()}
-        eager = _cuda_ms(lambda: refine(pr, pv, nxt, mv, bs, ny, nx, sr))
-        plain = _cuda_ms(lambda: me._refine_level(pr, pv, nxt, mv, bs, 0,
-                                                  ny, nx, sr),
-                         reps=3, batch=2)
-        # the least work: 18 probes (9 per reference) of |a - b| summed
-        # over bs^2 pixels, one subtraction and one addition of an
-        # absolute value per term, both exact on the fp32 lanes while the
-        # int16 differences cannot wrap (fp32 add with an |x| operand);
-        # the bytes: the three planes, mv and the refined mv, each once
-        bound = _bound(_nbytes(pr, pv, nxt, mv, want),
-                       P * By * Bx * 18 * bs * bs * 2, FP32_OPS_PER_S)
         label = (f"L{lvl} P={P} sr={sr} depth {d}"
                  + (" full int16" if lo < 0 else ""))
-        rows.append({"label": label, "gop": lo == 0, "max_abs_err": err,
-                     "ms": ms.pop(""), "eager_ms": eager, "plain_ms": plain,
-                     "bound": bound, "variants": ms})
-        r = rows[-1]
-        extra = "".join(f", {k} {v:.4f} ms" for k, v in ms.items())
-        print(f"  K1 {label} ({ny}x{nx}, {By}x{Bx} blocks, {P * By * Bx} "
-              f"blocks in all): max_abs_err {err}, kernel {r['ms']:.4f} ms "
-              f"({bound[0] / r['ms']:.0%} of its {bound[0]:.4f} ms "
-              f"{bound[1]} bound), back to back {eager:.4f} ms{extra}, "
-              f"plain {plain:.4f} ms", flush=True)
+        rows.append(dict(_k1_row(label, planes, mv, bs, 0, ny, nx, sr,
+                                 refine, variants), gop=lo == 0))
     gop = [r for r in rows if r["gop"]]
     print(f"  K1 per flagship GOP ({len(gop)} calls): kernel "
           f"{sum(r['ms'] for r in gop):.4f} ms, back to back "
           f"{sum(r['eager_ms'] for r in gop):.4f} ms, bound "
           f"{sum(r['bound'][0] for r in gop):.4f} ms", flush=True)
+    return rows
+
+
+def k1_wide_calls(dev, refine, seed=1):
+    """K1 where the window is not the flagship's whole-pixel 64: the
+    sub-pixel calls of a flagship GOP at accuracies a = 1-3 (step s of
+    accuracy a refines blocks of 64 << s on frames interpolated 2^s times
+    at every level's pairs, against cap = search range << a), one block
+    of 1024 (step 3 of a block size of 128), and borders 1-4 at level 1,
+    depth 0.  Random planes (0..255) and vectors (|mv| <= cap + 1), made
+    on the card from ``seed``.  Returns the rows, each with ``a`` (its
+    accuracy, None off the GOP's sub-pixel calls)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    rows = []
+    for s in (1, 2, 3):
+        H, W, bs = FLAGSHIP_H << s, FLAGSHIP_W << s, FLAGSHIP_BS << s
+        planes = [rand(0, 256, (8, H, W), torch.int16) for _ in range(3)]
+        for a in range(s, 4):
+            for lvl, (P, sr) in enumerate(FLAGSHIP_LEVELS, 1):
+                cap = sr << a
+                mv = rand(-cap - 1, cap + 2, (P, 2, 2, H // bs, W // bs),
+                          torch.int32)
+                rows.append(dict(_k1_row(
+                    f"a={a} s={s} L{lvl} P={P} cap={cap}",
+                    [p[:P] for p in planes], mv, bs, 0, H, W, cap, refine,
+                    eager=False), a=a))
+        if s == 3:
+            # blocks of 1024: accuracy 3 at a block size of 128
+            H1 = H - H % 1024
+            mv = rand(-257, 258, (1, 2, 2, H1 // 1024, W // 1024),
+                      torch.int32)
+            rows.append(dict(_k1_row(
+                "bs 1024 P=1 cap=256", [p[:1, :H1] for p in planes], mv,
+                1024, 0, H1, W, 256, refine, eager=False), a=None))
+        del planes
+    for a in (1, 2, 3):
+        sub = [r for r in rows if r["a"] == a]
+        print(f"  K1 sub-pixel calls of a flagship GOP at accuracy {a} "
+              f"({len(sub)} calls): kernel {sum(r['ms'] for r in sub):.4f} "
+              f"ms, bound {sum(r['bound'][0] for r in sub):.4f} ms",
+              flush=True)
+    H, W, bs = FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS
+    for border in (1, 2, 3, 4):
+        planes = [rand(0, 256, (8, H, W), torch.int16) for _ in range(3)]
+        mv = rand(-5, 6, (8, 2, 2, H // bs, W // bs), torch.int32)
+        rows.append(dict(_k1_row(f"L1 P=8 sr=4 depth 0 border {border}",
+                                 planes, mv, bs, border, H, W, 4, refine),
+                         a=None))
     return rows
 
 
@@ -261,11 +358,13 @@ def phase_kernel_parity(dev):
         return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)
                                 ).to(dev)
 
-    def refine(pr, pv, nxt, mv, bs, ny, nx, sr, split=None):
-        return cuda_me.refine(pr, pv, nxt, mv, bs, 0, ny, nx, sr, split)
+    def refine(pr, pv, nxt, mv, bs, ny, nx, sr, border, split=None):
+        return cuda_me.refine(pr, pv, nxt, mv, bs, border, ny, nx, sr,
+                              split)
     # beside the wrapper's choice of cluster size: one CTA per block
     k1 = k1_calls(dev, refine, {"one CTA per block": lambda *a: refine(
         *a, split=1)})
+    k1 += k1_wide_calls(dev, refine)
     results["me_refine"] = (max(r["max_abs_err"] for r in k1), k1[0]["ms"],
                             k1[0]["plain_ms"], k1[0]["bound"])
 
@@ -287,12 +386,55 @@ def phase_kernel_parity(dev):
                 results[name] = (max(results[name][0], row[0]),) + \
                     results[name][1:]
 
+    del prev, nxt, contrib
+    err = _k2_subpixel_calls(dev)
+    results["mc_predict"] = (max(results["mc_predict"][0], err),) + \
+        results["mc_predict"][1:]
+
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
         raise SystemExit(f"phase 2 kernel parity FAILED: {bad}")
     print("phase 2 kernel parity: ok (K1, K2, K3, K4 exact vs plain "
           "versions)", flush=True)
     return results
+
+
+def _k2_subpixel_calls(dev, seed=2):
+    """K2 as sub-pixel prediction calls it at accuracy a = 1-3: blocks of
+    64 << a on level 1's 8 pairs of 4:4:4 references interpolated 2^a
+    times, edge pad 4 * (4 << a), random |mv| <= (4 << a) + 1.  At a = 3
+    (8704 x 15360, 6.4 GB per stack) the plain version runs on the first
+    2 pairs, for the card's memory.  Returns the largest max_abs_err."""
+    from qsvc_tpu_torch.mctf import predict
+    from qsvc_tpu_torch.ops import cuda_mc
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for a in (1, 2, 3):
+        H, W, bs, sr = (FLAGSHIP_H << a, FLAGSHIP_W << a, FLAGSHIP_BS << a,
+                        4 << a)
+        prev, nxt = (torch.randint(0, 256, (8, 3, H, W), generator=gen,
+                                   device=dev, dtype=torch.int16)
+                     for _ in range(2))
+        mv = torch.randint(-sr - 1, sr + 2, (8, 2, 2, H // bs, W // bs),
+                           generator=gen, device=dev, dtype=torch.int32)
+        got = cuda_mc.predict(prev, nxt, mv, bs, 4 * sr)
+        n = 2 if a == 3 else 8
+        err = _max_err(got[:n], predict.predict_frame(
+            prev[:n], nxt[:n], mv[:n], bs, 4 * sr))
+        worst = max(worst, err)
+        ms = _cuda_ms(lambda: cuda_mc.predict(prev, nxt, mv, bs, 4 * sr),
+                      reps=3, batch=5)
+        plain = _cuda_ms(lambda: predict.predict_frame(
+            prev[:n], nxt[:n], mv[:n], bs, 4 * sr), reps=1, batch=1,
+            warmup=0)
+        bound = _bound(_nbytes(prev, nxt, mv, got), 4 * got.numel())
+        print(f"  K2 a={a} P=8 ({H}x{W}, blocks of {bs}, pad {4 * sr}): "
+              f"max_abs_err {err} (plain version on {n} pairs), kernel "
+              f"{ms:.4f} ms ({bound[0] / ms:.0%} of its {bound[0]:.4f} ms "
+              f"{bound[1]} bound), plain {plain:.4f} ms on {n} pairs",
+              flush=True)
+        del prev, nxt, got
+    return worst
 
 
 def _flagship_vectors(dev):
@@ -378,20 +520,31 @@ def phase_correctness(dev):
     from qsvc_tpu_torch.io import synthetic_video
     from qsvc_tpu_torch.mctf import transform
 
-    # the kernels in context: MCTF analysis on the card == plain CPU run
-    cfg = CodecConfig(pixels_in_x=256, pixels_in_y=128, TRLs=3, GOPs=1,
-                      block_size=32, search_range=8, update_factor=0.25)
-    vid = synthetic_video(cfg.pictures, 128, 256, seed=1, kind="translate")
+    # the kernels in context: MCTF analysis and synthesis on the card ==
+    # the plain CPU run, whole-pixel and with sub-pixel ME/MC, OLA and a
+    # border
+    base = CodecConfig(pixels_in_x=256, pixels_in_y=128, TRLs=3, GOPs=1,
+                       block_size=32, search_range=8, update_factor=0.25)
+    vid = synthetic_video(base.pictures, 128, 256, seed=1, kind="translate")
     planes = [torch.from_numpy(p) for p in vid.planes()]
-    on_card = transform.analyze(*(p.to(dev) for p in planes),
-                                cfg).to_numpy()
-    on_cpu = transform.analyze(*planes, cfg).to_numpy()
-    flat_a = [on_card.low_y, on_card.low_u, on_card.low_v] + [
-        a for lev in on_card.levels for a in lev]
-    flat_b = [on_cpu.low_y, on_cpu.low_u, on_cpu.low_v] + [
-        a for lev in on_cpu.levels for a in lev]
-    if not all(np.array_equal(a, b) for a, b in zip(flat_a, flat_b)):
-        raise SystemExit("phase 3: MCTF on the card differs from the CPU")
+
+    def flat(st):
+        return [st.low_y, st.low_u, st.low_v] + [a for lev in st.levels
+                                                 for a in lev]
+    for name, kw in MCTF_CASES.items():
+        cfg = base.replace(**kw)
+        on_card = transform.analyze(*(p.to(dev) for p in planes), cfg)
+        on_cpu = transform.analyze(*planes, cfg)
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(flat(on_card.to_numpy()), flat(on_cpu.to_numpy()))):
+            raise SystemExit(f"phase 3: MCTF analysis ({name}) on the card "
+                             f"differs from the CPU")
+        rec_card = transform.synthesize(on_card, cfg)
+        rec_cpu = transform.synthesize(on_cpu, cfg)
+        if not all(np.array_equal(a.cpu().numpy(), b.numpy())
+                   for a, b in zip(rec_card, rec_cpu)):
+            raise SystemExit(f"phase 3: MCTF synthesis ({name}) on the card "
+                             f"differs from the CPU")
 
     # 1080p lossless round trip through the container bytes
     cfg = CodecConfig(pixels_in_x=1920, pixels_in_y=1088, TRLs=3, GOPs=1,
@@ -404,18 +557,28 @@ def phase_correctness(dev):
     for a, b, name in zip(rec.planes(), vid.planes(), "yuv"):
         if not np.array_equal(a, b):
             raise SystemExit(f"phase 3: lossless round trip differs ({name})")
-    print(f"phase 3 correctness: ok (MCTF card == CPU at 256x128; 1080p "
+    print(f"phase 3 correctness: ok (MCTF analysis and synthesis card == "
+          f"CPU at 256x128: {', '.join(MCTF_CASES)}; 1080p "
           f"TRLs=3 lossless round trip bit-exact, {len(data)} bytes, "
           f"{dt:.3f} s)", flush=True)
 
 
 def phase_flagship(dev):
+    return _staged_run(dev, _flagship_cfg(), "phase 4 flagship 1920x1088 "
+                       "GOP16", "phase 4")
+
+
+def _staged_run(dev, cfg, title, phase):
+    """Encode (warm-up + timed) and decode (warm-up + timed) of
+    ``cfg.GOPs`` GOPs of the flagship's video staged on the card, 9/7 at
+    its slope; prints fps, bpp, PSNR and the launches, fails if K1-K3
+    never launched or PSNR-Y < 25 dB; returns the launch counts of the
+    run (set to 0 just before it)."""
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.codec.codestream import VideoStream
     from qsvc_tpu_torch.io import Video, synthetic_video, video_psnr
     from qsvc_tpu_torch.ops import cuda_lib
 
-    cfg = _flagship_cfg()
     gops = cfg.GOPs
     vid = synthetic_video(cfg.pictures, 1088, 1920, seed=0)
     S = cfg.gop_size
@@ -452,21 +615,57 @@ def phase_flagship(dev):
         return np.concatenate([p[:-1] for p in parts] + [parts[-1][-1:]])
     rec = Video(join("y"), join("u"), join("v"))
     if rec.y.shape != vid.y.shape or rec.u.shape != vid.u.shape:
-        raise SystemExit(f"phase 4: decoded shape {rec.y.shape}")
+        raise SystemExit(f"{phase}: decoded shape {rec.y.shape}")
     py, pu, pv = video_psnr(vid, rec)
     bpp = sum(len(b) for b in blobs) * 8 / (vid.y.size * 3 // 2)
     missing = [k for k in SEQUENTIAL_KERNELS if counts.get(k, 0) == 0]
-    print(f"phase 4 flagship 1920x1088 GOP16 x{gops}: encode "
+    print(f"{title} x{gops}: encode "
           f"{vid.frames / enc_s:.3f} fps ({enc_s:.3f} s, warm-up "
           f"{warm_s:.3f} s), decode {vid.frames / dec_s:.3f} fps "
           f"({dec_s:.3f} s), {bpp:.5f} bpp, PSNR-Y/U/V {py:.3f}/{pu:.3f}/"
           f"{pv:.3f} dB, launches {counts} (per {gops}-GOP encode "
           f"{per_encode}, per decode {per_decode})", flush=True)
     if missing:
-        raise SystemExit(f"phase 4: kernels never launched: {missing}")
+        raise SystemExit(f"{phase}: kernels never launched: {missing}")
     if not py >= 25.0:
-        raise SystemExit(f"phase 4: PSNR-Y {py:.3f} dB < 25 dB")
+        raise SystemExit(f"{phase}: PSNR-Y {py:.3f} dB < 25 dB")
     return counts
+
+
+def phase_subpixel(dev):
+    """6: the flagship with sub-pixel motion, a = 2 (phase 4's run), then
+    one GOP at a = 3 with OLA (block_overlaping 8) and border_size 2,
+    lossless, round-tripped through its container bytes."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec.codestream import VideoStream
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.ops import cuda_lib
+
+    t_start = time.time()
+    _staged_run(dev, _flagship_cfg(subpixel_accuracy=2),
+                "phase 6 sub-pixel flagship a=2 1920x1088 GOP16", "phase 6")
+    torch.cuda.empty_cache()
+    cfg = _flagship_cfg(GOPs=1, subpixel_accuracy=3, block_overlaping=8,
+                        border_size=2, update_factor=0.0,
+                        quantization_texture=0)
+    vid = synthetic_video(cfg.pictures, 1088, 1920, seed=0)
+    cuda_lib.reset_launches()
+    data, enc_s = _timed(lambda: api.compress(vid, cfg, reversible=True,
+                                              device=dev).to_bytes())
+    counts = dict(cuda_lib.launches)
+    rec, dec_s = _timed(lambda: api.expand(VideoStream.from_bytes(data),
+                                           device=dev))
+    for a, b, name in zip(rec.planes(), vid.planes(), "yuv"):
+        if not np.array_equal(a, b):
+            raise SystemExit(f"phase 6: the a=3 OLA lossless round trip "
+                             f"differs ({name})")
+    if counts.get("me_refine", 0) == 0:
+        raise SystemExit(f"phase 6: the a=3 encode never launched K1: "
+                         f"{counts}")
+    print(f"phase 6 a=3 OLA d=8 border 2 lossless GOP of 1920x1088: ok, "
+          f"bit-exact through {len(data)} bytes; encode {enc_s:.3f} s, "
+          f"decode {dec_s:.3f} s, launches per encode {counts}; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
 
 
 def _flagship_cfg(**kw):
@@ -627,6 +826,7 @@ def main() -> int:
               if k in SEQUENTIAL_KERNELS}
     counts["mc_update1"] = phase_sharded(dev)["mc_update1"]
     phase_halo(dev)
+    phase_subpixel(dev)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

@@ -1,7 +1,7 @@
 """Hierarchical bidirectional block-matching motion estimation.
 
 Port of ``qsvc_tpu/mctf/me.py`` (``trunk/src/motion_estimate.cpp``
-FAST_SEARCH path) without the sub-pixel loop:
+FAST_SEARCH path):
 
 * a 5/3 LL pyramid of depth ``round(log2(search_range)) - 1`` over the
   predicted and both reference lumas;
@@ -9,7 +9,12 @@ FAST_SEARCH path) without the sub-pixel loop:
   9-point spiral, probes applied anti-symmetrically (PREV +d, NEXT -d),
   later probes winning ties;
 * between depths the field is duplicated 2x2 onto the finer block grid,
-  doubled and clamped to ``±search_range``.
+  doubled and clamped to ``±search_range``;
+* with ``subpixel_accuracy`` a > 0, a steps on frames interpolated x2 per
+  step (5/3 zero-high synthesis): the vectors double, clamp to
+  ``±(search_range << a)`` and refine once more at ``block_size << s``
+  (``motion_estimate.cpp:361-407``), so they come out in units of
+  ``2^-a`` pixel.
 
 The refinement runs in kernel K1 (``csrc/me_refine.cu``) for CUDA
 tensors and in :func:`_refine_level`, its plain PyTorch version, for CPU
@@ -139,9 +144,6 @@ def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,
 
     ``evens``: (P+1, H, W) int16 luma; ``odds``: (P, H, W).  Pair i uses
     (evens[i], odds[i], evens[i+1]).  Returns (P, 2, 2, By, Bx) int32."""
-    if subpixel_accuracy > 0:
-        raise NotImplementedError("sub-pixel motion estimation is not "
-                                  "ported yet")
     P = odds.shape[0]
     H, W = odds.shape[-2], odds.shape[-1]
     By, Bx = H // block_size, W // block_size
@@ -176,4 +178,17 @@ def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,
         mv[..., :by_f, :bx_f] = _refine_level_batch(
             lls_o[l], lls_e[l][:-1], lls_e[l][1:], mv[..., :by_f, :bx_f],
             block_size, border_size, ny, nx, search_range)
+
+    # sub-pixel steps: every step refines against PREV and NEXT at
+    # cap = search_range << a (not << s); the ME pyramid is dead by now
+    del lls_e, lls_o
+    up_e, up_o = evens, odds
+    cap = search_range << subpixel_accuracy
+    for s in range(1, subpixel_accuracy + 1):
+        up_e = dwt2d.upsample2(up_e).contiguous()
+        up_o = dwt2d.upsample2(up_o).contiguous()
+        mv = (mv * 2).clamp(-cap, cap)
+        mv = _refine_level_batch(up_o, up_e[:-1], up_e[1:], mv,
+                                 block_size << s, border_size >> s, H << s,
+                                 W << s, cap)
     return mv

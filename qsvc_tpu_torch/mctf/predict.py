@@ -1,7 +1,6 @@
 """MCTF predict lifting step (forward = decorrelate, inverse = correlate).
 
-Port of ``qsvc_tpu/mctf/predict.py`` (``trunk/src/decorrelate.cpp``),
-without overlapped-block (OLA) and sub-pixel prediction:
+Port of ``qsvc_tpu/mctf/predict.py`` (``trunk/src/decorrelate.cpp``):
 
 * chroma is interpolated to luma resolution (zero-high 5/3 synthesis)
   because vectors apply at luma precision to all components;
@@ -9,6 +8,11 @@ without overlapped-block (OLA) and sub-pixel prediction:
   motion-shifted references, clipped to [0,255] — kernel K2
   (``csrc/mc.cu``) for CUDA tensors, :func:`predict_frame` for CPU
   tensors; reads beyond the frame replicate its edge;
+* overlapped-block (OLA) prediction widens each block's window, filters
+  it with a per-window 5/3 DWT and stitches the subbands: plain torch
+  ops on every device, as in the JAX package (no kernel);
+* sub-pixel prediction runs the block prediction on references
+  interpolated x2 per accuracy step and brings it back down;
 * the residue is ``clip(odd - prediction, -128, 127)`` stored +128 biased;
 * the I/B decision compares first-order entropies:
   ``H(odd)*pixels <= H(residue)*pixels + H(motion)*blocks`` selects an
@@ -19,6 +23,7 @@ Every function works on a batch of frame pairs (leading axis P).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,6 +45,39 @@ def downsample_chroma(c: torch.Tensor) -> torch.Tensor:
     return dwt2d.downsample2(c)
 
 
+#: window elements one OLA chunk gathers per reference, at most (a chunk
+#: is whole block rows of one pair)
+OLA_CHUNK = 1 << 27
+
+
+def _patch_index(origin: torch.Tensor, n: int, border: int, win: int,
+                 lead: int) -> torch.Tensor:
+    """Indices along an axis of ``n`` pixels of ``win``-long patches that
+    start ``lead`` before each block's shifted origin (block base plus
+    vector), as the JAX version reads them: from the axis padded by
+    ``border`` replicated pixels, at the ``lax.dynamic_slice`` start."""
+    start = blocks.slice_start(origin + border - lead, n + 2 * border,
+                               win) - border
+    iota = torch.arange(win, device=origin.device)
+    return (start[..., None] + iota).clamp(0, n - 1)
+
+
+def _block_patches(ref: torch.Tensor, mv_y: torch.Tensor,
+                   mv_x: torch.Tensor, block_size: int, border: int,
+                   win: int, lead: int = 0, row0: int = 0) -> torch.Tensor:
+    """(P, By, Bx, C, win, win) patches of ``ref`` (P, C, H, W): block
+    (row0 + i, j) read ``lead`` pixels before its origin shifted by its
+    vector, edge-padded by ``border`` as the JAX gathers read it."""
+    H, W = ref.shape[-2], ref.shape[-1]
+    By, Bx = mv_y.shape[-2], mv_y.shape[-1]
+    dev = ref.device
+    base_y = ((torch.arange(By, device=dev) + row0) * block_size)[:, None]
+    base_x = (torch.arange(Bx, device=dev) * block_size)[None, :]
+    rows = _patch_index(base_y + mv_y, H, border, win, lead)
+    cols = _patch_index(base_x + mv_x, W, border, win, lead)
+    return blocks.gather_block_patches(ref, rows, cols)
+
+
 def _mc_gather(ref: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
                block_size: int, border: int) -> torch.Tensor:
     """Motion-compensated gather: out block (i,j) = the ``ref`` block
@@ -48,21 +86,8 @@ def _mc_gather(ref: torch.Tensor, mv_y: torch.Tensor, mv_x: torch.Tensor,
     start.
 
     ``ref``: (P, C, H, W); ``mv_y``/``mv_x``: (P, By, Bx)."""
-    P, C, H, W = ref.shape
-    By, Bx = mv_y.shape[-2], mv_y.shape[-1]
-    bs = block_size
-    dev = ref.device
-    iota = torch.arange(bs, device=dev)
-
-    def idx(base, v, n):
-        start = blocks.slice_start(base + v + border, n + 2 * border,
-                                   bs) - border
-        return (start[..., None] + iota).clamp(0, n - 1)
-
-    rows = idx((torch.arange(By, device=dev) * bs)[:, None], mv_y, H)
-    cols = idx((torch.arange(Bx, device=dev) * bs)[None, :], mv_x, W)
-    return blocks.blocks_to_image(blocks.gather_block_patches(ref, rows,
-                                                              cols))
+    return blocks.blocks_to_image(_block_patches(
+        ref, mv_y, mv_x, block_size, border, block_size))
 
 
 def predict_frame(refs_prev: torch.Tensor, refs_next: torch.Tensor,
@@ -84,16 +109,101 @@ def predict_frames_batch(refs_prev: torch.Tensor, refs_next: torch.Tensor,
                          search_range: int, block_overlaping: int = 0
                          ) -> torch.Tensor:
     """Bidirectional prediction of a level's pairs: kernel K2 for CUDA
-    tensors, :func:`predict_frame` for CPU tensors.  ``refs_*``:
-    (P, C, H, W) int16; ``mv``: (P, 2, 2, By, Bx) int32."""
+    tensors, :func:`predict_frame` for CPU tensors; with
+    ``block_overlaping`` :func:`_predict_frames_ola` on either.
+    ``refs_*``: (P, C, H, W) int16; ``mv``: (P, 2, 2, By, Bx) int32."""
     if block_overlaping > 0:
-        raise NotImplementedError("overlapped-block prediction is not "
-                                  "ported yet")
-    border = 4 * search_range + block_overlaping
+        return _predict_frames_ola(refs_prev, refs_next, mv, block_size,
+                                   search_range, block_overlaping)
+    border = 4 * search_range
     if not mv.is_cuda:
         return predict_frame(refs_prev, refs_next, mv, block_size, border)
     return cuda_mc.predict(refs_prev.contiguous(), refs_next.contiguous(),
                            mv.contiguous(), block_size, border)
+
+
+def _predict_frames_ola(refs_prev: torch.Tensor, refs_next: torch.Tensor,
+                        mv: torch.Tensor, block_size: int,
+                        search_range: int, block_overlaping: int
+                        ) -> torch.Tensor:
+    """Overlapped-block (OLA) bidirectional prediction
+    (decorrelate.cpp:69-189): each block's window is widened by ``d =
+    block_overlaping`` pixels per side, the truncating average of its two
+    references analysed by a packed 5/3 DWT of ``log2 d`` levels (in
+    int16, as the JAX version's lifting runs), each subband cropped back
+    to the block's own coefficients, stitched into a frame-wide packed
+    pyramid and synthesized, then clipped to [0, 255].
+
+    Windows are independent, so they are gathered and analysed in chunks
+    of whole block rows of one pair (at most :data:`OLA_CHUNK` elements
+    per reference): the sub-pixel windows are large.  ``refs``:
+    (P, C, H, W) int16; ``mv``: (P, 2, 2, By, Bx).  Returns (P, C, H, W).
+    """
+    d = block_overlaping
+    levels = int(round(math.log2(d)))
+    bs = block_size
+    P, C, H, W = refs_prev.shape
+    By, Bx = H // bs, W // bs
+    border = 4 * search_range + d
+    win = bs + 2 * d
+    step = max(1, OLA_CHUNK // (Bx * C * win * win))
+    out = torch.empty_like(refs_prev)
+    for p in range(P):
+        canvas = refs_prev.new_zeros((C, H, W))
+        for i0 in range(0, By, step):
+            n = min(step, By - i0)
+
+            def windows(ref, v):             # v: (P, 2, By, Bx) of a direction
+                v = v[p:p + 1, :, i0:i0 + n]
+                return _block_patches(ref[p:p + 1], v[:, 0], v[:, 1], bs,
+                                      border, win, d, i0)
+            wp = windows(refs_prev, mv[:, 0])
+            wn = windows(refs_next, mv[:, 1])
+            avg = tdiv(wp + wn, 2)                # decorrelate.cpp:106
+            del wp, wn
+            packed = dwt2d.analyze(avg, levels)[0]   # (n, Bx, C, w, w)
+            del avg
+
+            def stitch(sub, y, x, b):
+                # (n, Bx, C, b, b) -> canvas rows of block rows i0..i0+n
+                canvas[:, y + i0 * b:y + (i0 + n) * b, x:x + Bx * b] = (
+                    sub.permute(2, 0, 3, 1, 4).reshape(C, n * b, Bx * b))
+            for l in range(1, levels + 1):
+                b, off, hoff = bs >> l, d >> l, (bs + 3 * d) >> l
+                Hl, Wl = H >> l, W >> l
+                stitch(packed[..., off:off + b, hoff:hoff + b], 0, Wl, b)
+                stitch(packed[..., hoff:hoff + b, off:off + b], Hl, 0, b)
+                stitch(packed[..., hoff:hoff + b, hoff:hoff + b], Hl, Wl, b)
+            b, off = bs >> levels, d >> levels
+            stitch(packed[..., off:off + b, off:off + b], 0, 0, b)
+        out[p] = dwt2d.synthesize(canvas, levels).clamp(0, 255)
+    return out
+
+
+def predict_frames_subpixel(evens444: torch.Tensor, mv: torch.Tensor,
+                            block_size: int, search_range: int,
+                            subpixel_accuracy: int,
+                            block_overlaping: int = 0) -> torch.Tensor:
+    """Bidirectional prediction of a level's pairs with sub-pixel motion
+    (decorrelate.cpp:656-686, 828-861): the 4:4:4 references are
+    interpolated x2 per accuracy step, the block prediction runs at
+    ``block_size << a`` with the vectors as they are (in units of 2^-a
+    pixel), then ``a`` analysis levels keeping LL bring it back.
+
+    ``evens444``: the level's (P+1, C, H, W) int16 evens; pair i predicts
+    from evens i and i+1.  The JAX version interpolates the PREV and NEXT
+    stacks apart; here the evens are interpolated once and sliced, which
+    gives the same values.  Returns (P, C, H, W)."""
+    a = subpixel_accuracy
+    up = evens444
+    for _ in range(a):
+        up = dwt2d.upsample2(up)
+    pred = predict_frames_batch(up[:-1], up[1:], mv, block_size << a,
+                                search_range << a, block_overlaping << a)
+    del up
+    for _ in range(a):
+        pred = dwt2d.downsample2(pred)
+    return pred
 
 
 def refs_to_444(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor

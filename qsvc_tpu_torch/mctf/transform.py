@@ -58,13 +58,6 @@ class MCTFStream(NamedTuple):
                                 for lev in self.levels))
 
 
-def _check_supported(cfg: CodecConfig) -> None:
-    if cfg.subpixel_accuracy > 0:
-        raise NotImplementedError("sub-pixel MCTF is not ported yet")
-    if cfg.block_overlaping > 0:
-        raise NotImplementedError("overlapped-block MCTF is not ported yet")
-
-
 def _update_evens(evens444: torch.Tensor, res444: torch.Tensor,
                   mv: torch.Tensor, block_size: int, search_range: int,
                   cfg: CodecConfig, sign: int) -> torch.Tensor:
@@ -91,17 +84,22 @@ def _analyze_level(low: Planes, block_size: int, search_range: int,
     mv = me.estimate_sequence(ey, oy, block_size, search_range,
                               cfg.border_size, cfg.subpixel_accuracy)
     evens444 = predict.refs_to_444(ey, eu, ev)
-    preds = predict.predict_frames_batch(
-        evens444[:-1], evens444[1:], mv, block_size, search_range,
+    preds = predict.predict_frames_subpixel(
+        evens444, mv, block_size, search_range, cfg.subpixel_accuracy,
         cfg.block_overlaping)
     dec = predict.decorrelate_from_pred((oy, ou, ov), preds, mv,
                                         cfg.always_B)
+    del preds
 
     if cfg.update_factor != 0.0:
         res444 = update.residue_to_444((dec.high_y, dec.high_u, dec.high_v),
                                        dec.is_B)
-        ev444 = update_evens(evens444, res444, dec.mv_out, block_size,
-                             search_range, cfg, 1)
+        # the update moves whole pixels: sub-pixel vectors shift down by
+        # the accuracy (arithmetic, so floor), here and not in
+        # update_evens, so that the sharded MCTF's update gets it too
+        ev444 = update_evens(evens444, res444,
+                             dec.mv_out >> cfg.subpixel_accuracy,
+                             block_size, search_range, cfg, 1)
         ly = ev444[:, 0]
         lu = predict.downsample_chroma(ev444[:, 1])
         lv = predict.downsample_chroma(ev444[:, 2])
@@ -118,13 +116,14 @@ def _synthesize_level(low: Planes, lev: LevelData, block_size: int,
     if cfg.update_factor != 0.0:
         res444 = update.residue_to_444((lev.high_y, lev.high_u, lev.high_v),
                                        lev.is_B)
-        ev444 = update_evens(low444, res444, lev.mv, block_size,
+        ev444 = update_evens(low444, res444,
+                             lev.mv >> cfg.subpixel_accuracy, block_size,
                              search_range, cfg, -1)
     else:
         ev444 = low444
 
-    preds = predict.predict_frames_batch(
-        ev444[:-1], ev444[1:], lev.mv, block_size, search_range,
+    preds = predict.predict_frames_subpixel(
+        ev444, lev.mv, block_size, search_range, cfg.subpixel_accuracy,
         cfg.block_overlaping)
     odd = predict.correlate_from_pred((lev.high_y, lev.high_u, lev.high_v),
                                       preds, lev.is_B)
@@ -148,7 +147,6 @@ def analyze(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 def _analyze(y, u, v, cfg: CodecConfig, update_evens) -> MCTFStream:
-    _check_supported(cfg)
     low = (y.to(torch.int16), u.to(torch.int16), v.to(torch.int16))
     levels: List[LevelData] = []
     for lp in cfg.level_schedule():
@@ -167,7 +165,6 @@ def synthesize(stream: MCTFStream, cfg: CodecConfig,
 
 def _synthesize(stream: MCTFStream, cfg: CodecConfig, discard_TRLs: int,
                 update_evens) -> Planes:
-    _check_supported(cfg)
     low = tuple(p.to(torch.int16)
                 for p in (stream.low_y, stream.low_u, stream.low_v))
     kept = cfg.level_schedule()[discard_TRLs:]

@@ -83,7 +83,7 @@ def load():
             lib = ctypes.CDLL(_build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.qsvc_me_refine.argtypes = ([vp] * 4 + [ci] * 5 + [vp]
-                                           + [ci] * 10 + [vp])
+                                           + [ci] * 11 + [vp])
             lib.qsvc_mc_predict.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [vp]
             lib.qsvc_mc_update2.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
             lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]

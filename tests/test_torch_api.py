@@ -34,6 +34,12 @@ REVERSIBLE = {
     "mctf_update": (dict(pixels_in_x=96, pixels_in_y=80, TRLs=2, GOPs=1,
                          block_size=16, search_range=4, update_factor=0.25,
                          quantization_texture=0, SRLs=3), 3, 4),
+    # tests/test_subpixel.py and tests/test_ola.py together: sub-pixel
+    # a = 2 with OLA, lossless
+    "subpixel_ola": (dict(pixels_in_x=64, pixels_in_y=48, TRLs=3, GOPs=1,
+                          block_size=16, search_range=2, subpixel_accuracy=2,
+                          block_overlaping=4, update_factor=0.0,
+                          quantization_texture=0, SRLs=3), 5, 11),
 }
 
 

@@ -94,17 +94,40 @@ def test_k1_exact_at_each_split(cuda, split, kind):
 
 
 @pytest.mark.gpu
-def test_k1_rejects_blocks_past_shared_memory(cuda):
-    """A 200-pixel block's rows fit in one CTA's shared memory only when
-    a cluster splits them."""
-    z = torch.zeros((1, 200, 200), dtype=torch.int16, device=cuda)
-    mv = torch.zeros((1, 2, 2, 1, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_me.refine(z, z, z, mv, 200, 0, 200, 200, 4, split=1)
-    want = me._refine_level(z, z, z, mv, 200, 0, 200, 200, 4)
-    torch.testing.assert_close(cuda_me.refine(z, z, z, mv, 200, 0, 200, 200,
-                                              4, split=2),
-                               want, rtol=0, atol=0)
+@pytest.mark.parametrize("kind", ["u8", "int16"])
+@pytest.mark.parametrize("border", [1, 2, 3, 4])
+@pytest.mark.parametrize("bs", [16, 64])
+def test_k1_exact_border(cuda, bs, border, kind):
+    """Windows widened by the border: the predicted window and both
+    reference windows start `border` before the block, edge-replicated at
+    the frame's edges (a 3x4 grid whose active region is smaller)."""
+    rng = np.random.default_rng(bs + 10 * border)
+    By, Bx, sr = 3, 4, 4
+    ny, nx = 3 * bs - 5, 4 * bs - 3
+    planes = _k1_planes(rng, kind, (2, By * bs, Bx * bs), cuda)
+    mv = _k1_vectors(rng, 2, By, Bx, sr, cuda)
+    got = cuda_me.refine(*planes, mv, bs, border, ny, nx, sr)
+    want = me._refine_level(*planes, mv, bs, border, ny, nx, sr)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", range(1, cuda_me.MAX_SPLIT + 1))
+@pytest.mark.parametrize("kind", ["u8", "int16"])
+@pytest.mark.parametrize("bs,border", [(128, 0), (256, 0), (512, 1),
+                                       (1024, 2)])
+def test_k1_exact_large_blocks(cuda, bs, border, kind, split):
+    """The sub-pixel refinement's block sizes (block_size << s): windows
+    walked in pieces of at most 256 columns, at each cluster size; the
+    full int16 range takes the wrap path, and its window sums pass 2^31
+    at win >= 256 and wrap as the plain version's int32 sums do."""
+    rng = np.random.default_rng(bs + split)
+    ny, nx = bs - 3, 2 * bs - 5
+    planes = _k1_planes(rng, kind, (1, bs, 2 * bs), cuda)
+    mv = _k1_vectors(rng, 1, 1, 2, 8, cuda)
+    got = cuda_me.refine(*planes, mv, bs, border, ny, nx, 8, split=split)
+    want = me._refine_level(*planes, mv, bs, border, ny, nx, 8)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -234,6 +257,19 @@ def test_mc_kernels_exact_off_the_fast_paths(cuda, bs, sr, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bs", [128, 256, 512])
+def test_k2_exact_large_blocks(cuda, bs):
+    """K2 at the sub-pixel prediction's block_size << a, with the edge pad
+    4 * (sr << a) and |mv| up to sr << a plus one."""
+    rng = np.random.default_rng(bs)
+    sr = bs // 16
+    refs, _, mv = _mc_inputs(rng, 2, 3, 2, 3, bs, sr, False, cuda)
+    torch.testing.assert_close(
+        predict.predict_frames_batch(*refs, mv, bs, sr),
+        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_launch_counts(cuda):
     cuda_lib.reset_launches()
     z = torch.zeros((1, 3, 32, 32), dtype=torch.int16, device=cuda)
@@ -261,13 +297,6 @@ def test_wrappers_reject_cpu_tensors():
         cuda_me.refine(z[:, 0], z[:, 0], z[:, 0], mv, 16, 0, 32, 32, 4)
 
 
-def test_k1_rejects_border():
-    z = torch.zeros((1, 32, 32), dtype=torch.int16)
-    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        cuda_me.refine(z, z, z, mv, 16, 1, 32, 32, 4)
-
-
 @pytest.mark.parametrize("split", [0, cuda_me.MAX_SPLIT + 1, 17])
 def test_k1_rejects_bad_split(split):
     """1 to 8 CTAs per block, and no more than the block has rows (bs
@@ -278,13 +307,21 @@ def test_k1_rejects_bad_split(split):
         cuda_me.refine(z, z, z, mv, 16, 0, 32, 32, 4, split=split)
 
 
-@pytest.mark.parametrize("bs", [0, cuda_me.MAX_BLOCK + 1])
+@pytest.mark.parametrize("bs", [0])
 def test_k1_rejects_block_size(bs):
-    """A thread owns one column: blocks of 1 to 256 pixels."""
+    """Blocks of at least one pixel (any size above: the kernel walks a
+    window in pieces)."""
     z = torch.zeros((1, 512, 512), dtype=torch.int16)
     mv = torch.zeros((1, 2, 2, 1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="block size"):
         cuda_me.refine(z, z, z, mv, bs, 0, 512, 512, 4)
+
+
+def test_k1_rejects_negative_border():
+    z = torch.zeros((1, 32, 32), dtype=torch.int16)
+    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="border"):
+        cuda_me.refine(z, z, z, mv, 16, -1, 32, 32, 4)
 
 
 def test_k1_rejects_too_many_pairs():
@@ -299,20 +336,41 @@ def test_k1_rejects_too_many_pairs():
 
 @pytest.mark.parametrize("n_blocks,bs,want", [
     (4080, 64, 1), (510, 64, 1), (135, 64, 1), (40, 64, 1), (24, 64, 1),
-    (16, 64, 8), (12, 64, 8), (4, 64, 8), (1, 4, 4)])
+    (16, 64, 8), (12, 64, 8), (4, 64, 8), (1, 4, 4), (4080, 512, 1),
+    (12, 1024, 8)])
 def test_k1_auto_split(n_blocks, bs, want):
     """Clusters of 8 only where 8 CTAs per block still fit on the 132
-    SMs, and never more CTAs than the block has rows."""
+    SMs, and never more CTAs than the block has rows; shared memory never
+    asks for more (the sub-pixel calls' bs 128-512 and 1024 included)."""
     assert cuda_me.auto_split(n_blocks, bs, 132) == want
 
 
 def test_k1_smem_layout():
     """int16 rows staged from a 16-byte aligned column: at bs 64 the block
-    (64 x 72) and two windows (66 x 80) take 30,336 bytes; a split CTA
-    owns ceil(64 / S) rows."""
+    (64 x 72) and two windows (66 x 80) take 30,336 bytes, one piece; a
+    split CTA owns ceil(64 / S) rows; a border widens the window (bs 64,
+    border 2: 68 rows of 80 and 70 of 80); from 257 columns on the window
+    splits into even tiles of at most 256, and past a CTA's 256 threads a
+    piece holds 32 rows (bs 256: 32 x 264 and 34 x 272)."""
     assert cuda_me.smem_bytes(64, 1) == 2 * (64 * 72 + 2 * 66 * 80)
     assert cuda_me.smem_bytes(64, 3) == 2 * (22 * 72 + 2 * 24 * 80)
     assert cuda_me.smem_bytes(6, 1) == 2 * (6 * 16 + 2 * 8 * 16)
+    assert cuda_me.smem_bytes(64, 1, 2) == 2 * (68 * 80 + 2 * 70 * 80)
+    assert cuda_me.smem_bytes(256, 1) == 2 * (32 * 264 + 2 * 34 * 272)
+    assert cuda_me.layout(64, 0, 1) == (64, 64, 64, 128)
+    assert cuda_me.layout(128, 0, 1) == (128, 128, 64, 256)
+    assert cuda_me.layout(512, 0, 1) == (512, 256, 32, 256)
+    assert cuda_me.layout(1024, 2, 8) == (1028, 206, 32, 256)
+
+
+@pytest.mark.parametrize("border", [0, 1, 4, 63])
+def test_k1_smem_bounded(border):
+    """Every block size up to 1024 at every split fits a CTA's 227 KB,
+    and the worst case (bs 2 at border 63) takes 55,424 bytes."""
+    most = max(cuda_me.smem_bytes(bs, s, border) for bs in range(1, 1025)
+               for s in range(1, min(cuda_me.MAX_SPLIT, bs) + 1))
+    assert most <= 55424 < 227 * 1024
+    assert cuda_me.smem_bytes(2, 1, 63) == 55424
 
 
 def test_predict_rejects_off_grid_frames():

@@ -165,8 +165,50 @@ def test_decorrelate_correlate_match_jax(rng):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
-def test_ola_raises():
-    z = torch.zeros((1, 3, 32, 32), dtype=torch.int16)
-    mv = torch.zeros((1, 2, 2, 2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        predict.predict_frames_batch(z, z, mv, 16, 4, block_overlaping=4)
+def _jax_ola(refs_p, refs_n, mv, bs, sr, d):
+    return np.asarray(jpredict._predict_frames_ola(
+        jnp.asarray(refs_p), jnp.asarray(refs_n), jnp.asarray(mv), bs, sr,
+        d))
+
+
+@pytest.mark.parametrize("bs,d", [(16, 2), (16, 4), (16, 8), (32, 16)])
+def test_predict_frames_ola_matches_jax(rng, bs, d):
+    """Overlapped-block prediction (decorrelate.cpp:69-189), from the
+    smallest overlap to half the block, |mv| past the 4 * sr edge pad so
+    the windows' lax starts move."""
+    sr = 2
+    refs = rng.integers(0, 256, (2, P, 3, 3 * bs, 4 * bs)).astype(np.int16)
+    mv = rng.integers(-11, 12, (P, 2, 2, 3, 4)).astype(np.int32)
+    got = predict.predict_frames_batch(*_t(refs[0], refs[1], mv), bs, sr,
+                                       block_overlaping=d)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_ola(refs[0], refs[1], mv, bs, sr, d))
+
+
+def test_predict_frames_ola_chunks_match_jax(rng, monkeypatch):
+    """One block row per chunk (the sub-pixel windows' memory bound)
+    stitches the same frame as one chunk."""
+    monkeypatch.setattr(predict, "OLA_CHUNK", 1)
+    refs = rng.integers(0, 256, (2, P, 3, 48, 64)).astype(np.int16)
+    mv = rng.integers(-5, 6, (P, 2, 2, 3, 4)).astype(np.int32)
+    got = predict.predict_frames_batch(*_t(refs[0], refs[1], mv), 16, 2,
+                                       block_overlaping=4)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_ola(refs[0], refs[1], mv, 16, 2, 4))
+
+
+@pytest.mark.parametrize("d", [0, 2])
+@pytest.mark.parametrize("a", [1, 2, 3])
+def test_predict_frames_subpixel_matches_jax(rng, a, d):
+    """Sub-pixel prediction (decorrelate.cpp:656-686, 828-861), with and
+    without OLA: the port interpolates the level's evens once and slices
+    them, the JAX version each reference stack apart."""
+    sr = 2
+    evens = rng.integers(0, 256, (P + 1, 3, 48, 64)).astype(np.int16)
+    reach = (sr << a) + 1
+    mv = rng.integers(-reach, reach + 1, (P, 2, 2, 3, 4)).astype(np.int32)
+    want = jpredict.predict_frames_subpixel(
+        jnp.asarray(evens[:-1]), jnp.asarray(evens[1:]), jnp.asarray(mv),
+        16, sr, a, d)
+    got = predict.predict_frames_subpixel(*_t(evens, mv), 16, sr, a, d)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -108,7 +108,8 @@ def test_refine_plain_matches_lax_wrap_and_ties(kind):
 
 
 def test_refine_plain_border_matches_lax():
-    """border_size > 0 runs only in the plain version (K1 raises)."""
+    """border_size > 0: each block is matched over its window widened by
+    the border (K1 computes the same on the card)."""
     rng = np.random.default_rng(5)
     planes = _planes(rng, 48, 64)
     mv = rng.integers(-2, 3, (P, 2, 2, 3, 4)).astype(np.int32)
@@ -134,7 +135,72 @@ def test_estimate_sequence_matches_jax(H_, W_, bs, sr, kind):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_subpixel_raises():
-    y = torch.zeros((3, 32, 32), dtype=torch.int16)
-    with pytest.raises(NotImplementedError):
-        me.estimate_sequence(y, y[:2], 16, 4, 0, 1)
+def _lax_refine(planes, mv, bs, border, ny, nx, max_mv):
+    return np.asarray(jax.vmap(lambda a, b, c, m: jme._refine_level(
+        a, b, c, m, bs, border, ny, nx, max_mv))(
+        *(jnp.asarray(p) for p in planes), jnp.asarray(mv)))
+
+
+def _port_refine(planes, mv, bs, border, ny, nx, max_mv):
+    return me._refine_level(*(torch.from_numpy(p) for p in planes),
+                            torch.from_numpy(mv), bs, border, ny, nx,
+                            max_mv).numpy()
+
+
+@pytest.mark.parametrize("border", [1, 2, 3, 4])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_k1_border_parity(bs, border):
+    """K1's plain version at every border the card tests (it raised on
+    the card before K1 took borders): active region smaller than the
+    grid, vectors up to max_mv + 1, against the lax formulation."""
+    rng = np.random.default_rng(bs * 10 + border)
+    ny, nx = 3 * bs - 3, 4 * bs - 5
+    planes = [rng.integers(0, 256, (P, 3 * bs, 4 * bs)).astype(np.int16)
+              for _ in range(3)]
+    mv = rng.integers(-4, 5, (P, 2, 2, 3, 4)).astype(np.int32)
+    np.testing.assert_array_equal(
+        _port_refine(planes, mv, bs, border, ny, nx, 3),
+        _lax_refine(planes, mv, bs, border, ny, nx, 3))
+
+
+@pytest.mark.parametrize("bs,border,kind", [
+    (128, 0, "u8"), (256, 1, "u8"), (256, 1, "wrap"), (512, 0, "wrap")])
+def test_refine_plain_large_blocks_match_lax(bs, border, kind):
+    """Block sizes K1 refused before (a thread owned one column, up to
+    256): the sub-pixel refinement calls it at block_size << s.  "wrap":
+    the predicted frame at 32767 against references near 0, so a window
+    sum of (bs + 2 border)^2 terms passes 2^31 and wraps; the plain
+    version's int32 sum wraps as the lax sum does (and as K1's int32
+    adds do)."""
+    rng = np.random.default_rng(bs + border)
+    n = bs + bs // 2
+    if kind == "u8":
+        planes = [rng.integers(0, 256, (1, n, n)).astype(np.int16)
+                  for _ in range(3)]
+    else:
+        planes = [np.full((1, n, n), 32767, np.int16)] + [
+            rng.integers(0, 12, (1, n, n)).astype(np.int16)
+            for _ in range(2)]
+        assert (bs + 2 * border) ** 2 * 32755 > 2**31
+    mv = rng.integers(-5, 6, (1, 2, 2, 1, 1)).astype(np.int32)
+    np.testing.assert_array_equal(
+        _port_refine(planes, mv, bs, border, n, n, 4),
+        _lax_refine(planes, mv, bs, border, n, n, 4))
+
+
+@pytest.mark.parametrize("border", [0, 2])
+@pytest.mark.parametrize("a", [1, 2, 3])
+@pytest.mark.parametrize("H_,W_,bs,sr", [(48, 64, 16, 2), (80, 96, 16, 4)])
+def test_estimate_sequence_subpixel_matches_jax(H_, W_, bs, sr, a, border):
+    """Sub-pixel motion estimation (motion_estimate.cpp:361-407) at the
+    shapes of tests/test_subpixel.py, and a larger search range: the
+    refinement at block_size << s on frames interpolated a times, with
+    the border halved per step."""
+    from qsvc_tpu.io import synthetic_video
+    vid = synthetic_video(5, H_, W_, seed=sr, kind="translate")
+    y = vid.y.astype(np.int16)
+    want = jme.estimate_sequence(jnp.asarray(y[0::2]), jnp.asarray(y[1::2]),
+                                 bs, sr, border, a)
+    got = me.estimate_sequence(torch.from_numpy(y[0::2]),
+                               torch.from_numpy(y[1::2]), bs, sr, border, a)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

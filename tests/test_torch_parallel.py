@@ -43,11 +43,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(pixels_in_x=32, pixels_in_y=32, TRLs=2, block_size=16,
           search_range=2, update_factor=0.25, quantization_texture=0,
           SRLs=2)
-# (world size, case) -> (GOPs, TRLs); "k2" holds two GOPs per rank.
-# "t3" has two temporal levels: only there does the phase-2 halo (the
-# right boundary copy) feed later work, the next level's analysis.
-SPAWN_CASES = {(2, "k1"): (2, 2), (2, "k2"): (4, 2), (4, "k1"): (4, 2),
-               (4, "t3"): (4, 3)}
+# (world size, case) -> (GOPs, TRLs, sub-pixel accuracy); "k2" holds two
+# GOPs per rank.  "t3" has two temporal levels: only there does the
+# phase-2 halo (the right boundary copy) feed later work, the next level's
+# analysis.  "a1": half-pixel vectors, which the update (K4 on the card)
+# takes shifted down by the accuracy.
+SPAWN_CASES = {(2, "k1"): (2, 2, 0), (2, "k2"): (4, 2, 0),
+               (2, "a1"): (2, 2, 1), (4, "k1"): (4, 2, 0),
+               (4, "t3"): (4, 3, 0)}
 
 
 def _video(G, TRLs=2):
@@ -55,11 +58,15 @@ def _video(G, TRLs=2):
                            32, 32, seed=10 + G)
 
 
+def _kw(TRLs=2, a=0):
+    return dict(KW, TRLs=TRLs, subpixel_accuracy=a)
+
+
 @functools.cache
-def _jax_ref(G, TRLs=2):
+def _jax_ref(G, TRLs=2, a=0):
     """JAX sequential analyze/synthesize/compress/compress_gops of the
     G-GOP test video, as numpy and bytes."""
-    cfg = JaxConfig(GOPs=G, **dict(KW, TRLs=TRLs))
+    cfg = JaxConfig(GOPs=G, **_kw(TRLs, a))
     vid = _video(G, TRLs)
     seq_bytes = japi.compress(vid, cfg, reversible=True).to_bytes()
     # the jitted analysis on the uint8 planes api.compress uploads (its
@@ -267,8 +274,9 @@ def spawn(tmp_path_factory):
         d = tmp_path_factory.mktemp(f"gloo{world}")
         script = d / "worker.py"
         script.write_text(_WORKER)
-        cases = {name: (dict(KW, TRLs=T), G, _jax_ref(G, T)["stream"])
-                 for (w, name), (G, T) in SPAWN_CASES.items() if w == world}
+        cases = {name: (_kw(T, a), G, _jax_ref(G, T, a)["stream"])
+                 for (w, name), (G, T, a) in SPAWN_CASES.items()
+                 if w == world}
         with open(d / "in.pkl", "wb") as f:
             pickle.dump(cases, f)
         env = {k: v for k, v in os.environ.items()

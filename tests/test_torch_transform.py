@@ -27,6 +27,19 @@ CASES = {
     "translate": dict(pixels_in_x=112, pixels_in_y=96, TRLs=3, GOPs=1,
                       block_size=16, search_range=8, update_factor=0.25),
 }
+# sub-pixel ME/MC (the update moves mv >> a), OLA alone and with
+# sub-pixel, and a matching border: tests/test_subpixel.py's and
+# tests/test_ola.py's configuration, update step on
+_SMALL = dict(pixels_in_x=64, pixels_in_y=48, TRLs=3, GOPs=1, block_size=16,
+              search_range=2, update_factor=0.25)
+CASES.update({
+    "subpixel_a1": dict(_SMALL, subpixel_accuracy=1),
+    "subpixel_a2": dict(_SMALL, subpixel_accuracy=2),
+    "subpixel_a3": dict(_SMALL, subpixel_accuracy=3),
+    "ola_d4": dict(_SMALL, block_overlaping=4),
+    "ola_d2_a1": dict(_SMALL, block_overlaping=2, subpixel_accuracy=1),
+    "border2": dict(_SMALL, border_size=2),
+})
 
 
 def _arrays(stream):
