@@ -50,11 +50,22 @@ Phases, one line each; any failure exits non-zero before the last line:
    GOPs, fps, bpp, PSNR and launches; fails if K1-K3 never launch or
    PSNR-Y < 25 dB), then one GOP at accuracy 3 with OLA (block_overlaping
    8) and border_size 2, lossless, which must round-trip bit-exactly
-   through its container bytes.
+   through its container bytes;
+7. the codec's user surface: (a) ``qsvc_tpu_torch.cli`` in this process
+   on 33 frames (2 GOPs) of the flagship's video through a .yuv file —
+   lossless compress with a resume store, again (both GOPs from the
+   store), expand byte for byte; lossy compress at 45000, info, transcode
+   (QS 46000 smaller, TS and SS expanded to their shapes), rd of two
+   points; (b) a lossless 5/3 flagship GOP reduced by SS at d = 1 and 4
+   (K2 and K3 at blocks of 32 and 4) and TS at d = 1, decoded on the card
+   and on the CPU, bit-identical, and FS rate control at a third of a
+   lossy GOP's bytes; (c) one flagship GOP through the cp, zlib (exact at
+   update 0) and ltw (PSNR-Y >= 25 dB) texture backends, with the
+   launches of their encodes.
 
-The whole run takes 75-85 s on an H100 (phase 2's wide K1 calls and
-their plain versions are the largest part of what phases 2, 3 and 6
-added).
+The whole run takes 75-85 s on an H100 before phase 7 (phase 2's wide K1
+calls and their plain versions are the largest part of what phases 2, 3
+and 6 added).
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main path: phase 4 for K1-K3, phase
@@ -72,6 +83,7 @@ while no int16 difference wraps).  No single PyTorch call computes
 K1-K4, so ``library_ms`` is null.
 """
 
+import collections
 import json
 import os
 import statistics
@@ -813,6 +825,210 @@ def phase_halo(dev):
           f"{ranks_s:.3f} s with start-up)", flush=True)
 
 
+def _cli(argv):
+    """``qsvc_tpu_torch.cli.main(argv)`` in this process: (stdout, stderr,
+    wall seconds); a non-zero return fails phase 7."""
+    import contextlib
+    import io
+    from qsvc_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    dt = time.time() - t0
+    if rc != 0:
+        raise SystemExit(f"phase 7: cli {' '.join(argv)} returned {rc}:\n"
+                         f"{out.getvalue()}{err.getvalue()}")
+    return out.getvalue(), err.getvalue(), dt
+
+
+def _surface_cli(dev, tmp):
+    """7a: the CLI on 33 frames (2 GOPs) of the flagship's video, through
+    a .yuv file: lossless with a resume store (run twice: the second run
+    takes both GOPs from the store) and expanded byte for byte; lossy at
+    45000 with info, transcode (QS, TS, SS) and rd.  Returns the lossy
+    file's first GOP, and the launches of each compress."""
+    from qsvc_tpu_torch.codec import codestream
+    from qsvc_tpu_torch.io import synthetic_video, write_yuv
+    from qsvc_tpu_torch.ops import cuda_lib
+
+    n, H, W = 33, FLAGSHIP_H, FLAGSHIP_W
+    vid = synthetic_video(n, H, W, seed=0)
+    src = os.path.join(tmp, "in.yuv")
+    write_yuv(src, vid)
+    flags = ["--pixels_in_x", str(W), "--pixels_in_y", str(H), "--TRLs",
+             "5", "--SRLs", "5", "--search_range", "4", "--pictures",
+             str(n), "--device", str(dev)]
+    path = {k: os.path.join(tmp, k) for k in (
+        "ll.qsvc", "ll.yuv", "lossy.qsvc", "q.qsvc", "ts.qsvc", "ts.yuv",
+        "ss.qsvc", "ss.yuv", "store")}
+
+    def compress(out, extra):
+        cuda_lib.reset_launches()
+        _, err, dt = _cli(["compress", "--input", src, "--output", out]
+                          + flags + extra)
+        return err, dt, dict(cuda_lib.launches)
+
+    ll = ["--lossless", "--update_factor", "0", "--resume", path["store"]]
+    _, ll_s, ll_launch = compress(path["ll.qsvc"], ll)
+    err, cached_s, _ = compress(path["ll.qsvc"], ll)
+    if err.count("(cached)") != 2:
+        raise SystemExit(f"phase 7: the resumed compress re-encoded: {err}")
+    _, _, llx_s = _cli(["expand", "--input", path["ll.qsvc"], "--output",
+                        path["ll.yuv"], "--device", str(dev)])
+    with open(src, "rb") as a, open(path["ll.yuv"], "rb") as b:
+        if a.read() != b.read():
+            raise SystemExit("phase 7: the lossless CLI round trip differs")
+
+    _, lossy_s, lossy_launch = compress(path["lossy.qsvc"], [])
+    out, _, _ = _cli(["info", "--input", path["lossy.qsvc"]])
+    if "--- GOP 0 ---" not in out or "--- GOP 1 ---" not in out:
+        raise SystemExit(f"phase 7: info does not list both GOPs:\n{out}")
+    sizes = {}
+    for name, extra in (("q", ["--quantization", "46000"]),
+                        ("ts", ["--discard_TRLs", "1"]),
+                        ("ss", ["--discard_SRLs", "1"])):
+        _cli(["transcode", "--input", path["lossy.qsvc"], "--output",
+              path[f"{name}.qsvc"]] + extra)
+        sizes[name] = os.path.getsize(path[f"{name}.qsvc"])
+    if not sizes["q"] < os.path.getsize(path["lossy.qsvc"]):
+        raise SystemExit("phase 7: transcode --quantization 46000 did not "
+                         "shrink the stream")
+    expand_s = {}
+    for name, frames, h, w in (("ts", 17, H, W), ("ss", n, H // 2, W // 2)):
+        _, _, expand_s[name] = _cli(
+            ["expand", "--input", path[f"{name}.qsvc"], "--output",
+             path[f"{name}.yuv"], "--device", str(dev)])
+        if os.path.getsize(path[f"{name}.yuv"]) != frames * h * w * 3 // 2:
+            raise SystemExit(f"phase 7: the {name} extraction does not "
+                             f"expand to {frames} frames of {w}x{h}")
+    out, _, rd_s = _cli(["rd", "--input", path["lossy.qsvc"], "--original",
+                         src, "--quantizations", "45000,46000", "--device",
+                         str(dev)])
+    points = [ln for ln in out.splitlines() if ln and ln[0] != "#"]
+    if len(points) != 2:
+        raise SystemExit(f"phase 7: rd printed {len(points)} points:\n{out}")
+    with open(path["lossy.qsvc"], "rb") as f:
+        lossy = f.read()
+    print(f"  7a CLI, {n} frames of {W}x{H} through .yuv files (file I/O "
+          f"included): lossless compress {n / ll_s:.3f} fps ({ll_s:.3f} s, "
+          f"launches {ll_launch}), resumed from the store {cached_s:.3f} s, "
+          f"expand {n / llx_s:.3f} fps, byte for byte; lossy 45000 "
+          f"compress {n / lossy_s:.3f} fps ({len(lossy)} bytes, launches "
+          f"{lossy_launch}); transcode to {sizes} bytes; TS expand "
+          f"{17 / expand_s['ts']:.3f} fps, SS expand {n / expand_s['ss']:.3f}"
+          f" fps; rd of 2 points {rd_s:.3f} s: {points}", flush=True)
+    return codestream.unpack_gop_streams(lossy)[0]
+
+
+def _surface_extraction(dev, lossy_gop):
+    """7b: one lossless 5/3 flagship GOP (update 1/4) reduced by SS at
+    d = 1 and 4 (K2 and K3 at blocks of 32 and 4) and by TS at d = 1,
+    each decoded on the card and on the CPU, which must be bit-identical;
+    then FS rate control at a third of a lossy GOP's bytes."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec.codestream import VideoStream
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.scal import extract
+
+    cfg = _flagship_cfg(GOPs=1, quantization_texture=0)
+    vid = synthetic_video(cfg.pictures, FLAGSHIP_H, FLAGSHIP_W, seed=0)
+    vs = VideoStream.from_bytes(api.compress(vid, cfg, reversible=True,
+                                             device=dev).to_bytes())
+    rows = []
+    for name, sub in (("SS d=1", extract.spatial_truncate(vs, 1)),
+                      ("SS d=4", extract.spatial_truncate(vs, 4)),
+                      ("TS d=1", extract.temporal_truncate(vs, 1))):
+        cuda_lib.reset_launches()
+        card, card_s = _timed(lambda: api.expand(sub, device=dev))
+        counts = dict(cuda_lib.launches)
+        t0 = time.time()
+        cpu = api.expand(sub, device="cpu")
+        cpu_s = time.time() - t0
+        for a, b, c in zip(card.planes(), cpu.planes(), "yuv"):
+            if not np.array_equal(a, b):
+                raise SystemExit(f"phase 7: the {name} decode on the card "
+                                 f"differs from the CPU ({c})")
+        if not all(counts.get(k, 0) for k in ("mc_predict", "mc_update2")):
+            raise SystemExit(f"phase 7: the {name} decode did not launch "
+                             f"K2 and K3: {counts}")
+        rows.append(f"{name}, {card.frames} frames of {card.width}x"
+                    f"{card.height} in blocks of {sub.cfg.auto_block_size}"
+                    f": card {card.frames / card_s:.3f} fps ({card_s:.3f} s,"
+                    f" launches {counts}), CPU {cpu_s:.3f} s")
+    lossy = VideoStream.from_bytes(lossy_gop)
+    budget = len(lossy_gop) // 3
+    t0 = time.time()
+    fs = extract.select_for_rate(lossy, budget, "FS")
+    fs_s = time.time() - t0
+    got = sum(fs.texture_bytes().values()) + sum(fs.motion_bytes().values())
+    if got > budget * 1.05:
+        raise SystemExit(f"phase 7: FS kept {got} bytes of a {budget} "
+                         f"budget")
+    if api.expand(fs, device=dev).y.shape != (17, FLAGSHIP_H, FLAGSHIP_W):
+        raise SystemExit("phase 7: the FS extraction decodes to another "
+                         "shape")
+    print(f"  7b reduced decodes of a lossless 5/3 GOP, card == CPU: "
+          f"{'; '.join(rows)}; FS to {budget} of {len(lossy_gop)} bytes "
+          f"({got} kept) in {fs_s:.3f} s on the host", flush=True)
+
+
+def _surface_backends(dev):
+    """7c: one flagship GOP through the cp, zlib (update 0: exact) and
+    ltw (PSNR-Y >= 25 dB) backends and back through container bytes,
+    with each encode's seconds, bytes and launches."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec import backends
+    from qsvc_tpu_torch.codec.codestream import VideoStream
+    from qsvc_tpu_torch.io import synthetic_video, video_psnr
+    from qsvc_tpu_torch.ops import cuda_lib
+
+    vid = synthetic_video(17, FLAGSHIP_H, FLAGSHIP_W, seed=0)
+    total = collections.Counter()
+    rows = []
+    for name, kw in (("cp", dict(update_factor=0.0)),
+                     ("zlib", dict(update_factor=0.0)), ("ltw", {})):
+        cfg = _flagship_cfg(GOPs=1, texture_backend=name, **kw)
+        cuda_lib.reset_launches()
+        data, enc_s = _timed(lambda: api.compress(vid, cfg,
+                                                  device=dev).to_bytes())
+        counts = dict(cuda_lib.launches)
+        total.update(counts)
+        rec, dec_s = _timed(lambda: api.expand(VideoStream.from_bytes(data),
+                                               device=dev))
+        py = video_psnr(vid, rec)[0]
+        if name == "ltw":
+            if not py >= 25.0:
+                raise SystemExit(f"phase 7: ltw PSNR-Y {py:.3f} dB < 25")
+        elif not all(np.array_equal(a, b)
+                     for a, b in zip(rec.planes(), vid.planes())):
+            raise SystemExit(f"phase 7: the {name} round trip differs")
+        rows.append(f"{name} encode {enc_s:.3f} s, {len(data)} bytes, "
+                    f"decode {dec_s:.3f} s, PSNR-Y {py:.3f} dB, launches "
+                    f"{counts}")
+    missing = [k for k in SEQUENTIAL_KERNELS if total.get(k, 0) == 0]
+    if missing:
+        raise SystemExit(f"phase 7: the backend encodes never launched "
+                         f"{missing}")
+    print(f"  7c backends registered here: {list(backends.available())}; "
+          f"one GOP of {FLAGSHIP_W}x{FLAGSHIP_H}: {'; '.join(rows)}",
+          flush=True)
+
+
+def phase_surface(dev):
+    """7: the codec's user surface on the card: the CLI, reduced
+    decodes and extraction, the texture backends."""
+    t_start = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        lossy_gop = _surface_cli(dev, tmp)
+    _surface_extraction(dev, lossy_gop)
+    _surface_backends(dev)
+    print(f"phase 7 the codec's user surface: ok; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -827,6 +1043,7 @@ def main() -> int:
     counts["mc_update1"] = phase_sharded(dev)["mc_update1"]
     phase_halo(dev)
     phase_subpixel(dev)
+    phase_surface(dev)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

@@ -1,13 +1,15 @@
 """Top-level codec API: compress / expand on an explicit torch device.
 
-Port of ``qsvc_tpu/api.py`` (the internal texture codec; backends and
-the compile-cache prewarm have no counterpart).  Every entry point takes
-a keyword-only ``device``: numpy frames with ``device="cuda"`` run the
+Port of ``qsvc_tpu/api.py`` (the compile-cache prewarm has no
+counterpart).  Every entry point takes a keyword-only ``device``: numpy frames with ``device="cuda"`` run the
 MCTF and texture transforms on the card through the kernels of
 ``csrc/``, ``device="cpu"`` runs their plain PyTorch versions.  Frames
 already on the device (the staged mode) are used in place.  EBCOT
 entropy coding runs on the host in the native coder; the streams are
 byte-identical to the JAX package's wherever the arithmetic is integer.
+A ``cfg.texture_backend`` other than "internal" codes every subband
+plane with a per-plane codec of :mod:`.codec.backends` instead; the MCTF
+still runs on ``device``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .codec import codestream, frame_codec
+from .codec import backends, codestream, frame_codec
 from .codec.codestream import LevelSection, VideoStream
 from .codec.frame_codec import slope_to_threshold
 from .config import CodecConfig
@@ -33,10 +35,29 @@ def _host(x):
 
 
 def _decode_plane_set(frames: List[Dict[str, frame_codec.EncodedFrame]],
-                      threshold: float, device):
-    """Decoded (N, H, W) int32 stacks of one plane set, on ``device``."""
+                      threshold: float = 0.0, discard_levels: int = 0, *,
+                      device):
+    """Decoded (N, H, W) int32 stacks of one plane set, on ``device``.
+    Backend planes decode on the host and are uploaded; they carry no
+    resolution levels, so ``discard_levels`` needs internal frames."""
+    if frames and isinstance(frames[0]["y"], backends.BackendFrame):
+        if discard_levels:
+            raise ValueError("SS extraction requires the internal "
+                             "texture codec (backend frames carry no "
+                             "resolution levels)")
+
+        def dec(comp):
+            # int32: the inverse MCTF subtracts the +128 bias — uint8
+            # arithmetic would wrap
+            stack = np.stack([
+                backends.get(fr[comp].backend).decode(
+                    fr[comp].payload, fr[comp].H, fr[comp].W, device=device)
+                for fr in frames]).astype(np.int32)
+            return torch.from_numpy(stack).to(device)
+        return dec("y"), dec("u"), dec("v")
     return tuple(frame_codec.decode_frames([fr[c] for fr in frames],
-                                           threshold, device)
+                                           threshold, discard_levels,
+                                           device=device)
                  for c in ("y", "u", "v"))
 
 
@@ -112,8 +133,6 @@ def compress_dispatch(video: Video, cfg: CodecConfig,
     texture DWT+quantize+tile+R-D simulation over one luma and one chroma
     stack, and the motion-field decorrelation.  Nothing waits for the
     device; the returned handle is drained by :func:`compress_finish`."""
-    if cfg.texture_backend != "internal":
-        raise NotImplementedError("texture backends are not ported yet")
     with trace.stage("upload+mctf_dispatch", frames=int(video.frames)):
         video = _upload(video, device)
         video, cfg, true_dims, true_frames = _pad_to_grid(video, cfg)
@@ -255,6 +274,56 @@ def compress_finish(pending: dict) -> VideoStream:
                        true_frames=pending["true_frames"])
 
 
+def _compress_with_backend(video: Video, cfg: CodecConfig, *,
+                           device) -> VideoStream:
+    """Encode with an alternative texture backend (codec/backends.py):
+    the MCTF on ``device`` as usual, then each subband stack comes to the
+    host once and every frame plane is coded by the selected per-plane
+    codec instead of the internal DWT+EBCOT path.  Subband planes are
+    already uint8-range (high bands stored +128-biased), so every backend
+    sees plain grayscale planes."""
+    be = backends.get(cfg.texture_backend)
+    video = _upload(video, device)
+    video, cfg, true_dims, true_frames = _pad_to_grid(video, cfg)
+    cfg.validate()
+    if cfg.TRLs > 1:
+        stream = transform.analyze(video.y, video.u, video.v, cfg)
+    else:
+        stream = transform.MCTFStream(video.y.to(torch.int16),
+                                      video.u.to(torch.int16),
+                                      video.v.to(torch.int16), ())
+    q = 0.0 if be.lossless else float(cfg.quantization_texture)
+
+    def enc_planes(py, pu, pv) -> List[Dict[str, backends.BackendFrame]]:
+        ay, au, av = _host(py), _host(pu), _host(pv)
+        out = []
+        for i in range(ay.shape[0]):
+            fr = {}
+            for comp, a in (("y", ay), ("u", au), ("v", av)):
+                p = np.clip(a[i], 0, 255).astype(np.uint8)
+                fr[comp] = backends.BackendFrame(
+                    be.name, p.shape[0], p.shape[1],
+                    be.encode(p, q, device=device))
+            out.append(fr)
+        return out
+
+    low = enc_planes(stream.low_y, stream.low_u, stream.low_v)
+    mv_fields = [lev.mv for lev in stream.levels]
+    residues = ([_host(r) for r in motion_coding.decorrelate(mv_fields)]
+                if mv_fields else [])
+    levels: List[LevelSection] = []
+    for t, lev in enumerate(stream.levels):
+        high = enc_planes(lev.high_y, lev.high_u, lev.high_v)
+        motion = codestream.encode_motion_fields(list(residues[t]))
+        ftypes = bytes(b"B"[0] if b else b"I"[0] for b in _host(lev.is_B))
+        levels.append(LevelSection(high, motion, ftypes))
+    # header metadata reflects the backend: a lossy backend's stream is
+    # not reversible, and delta is unused (backends quantize on their
+    # own) — 0.0 marks it so
+    return VideoStream(cfg, be.lossless, 0.0, low, levels,
+                       true_dims=true_dims, true_frames=true_frames)
+
+
 def compress(video: Video, cfg: CodecConfig, reversible: bool = True,
              delta: Optional[float] = None, lossless: Optional[bool] = None,
              *, device) -> VideoStream:
@@ -263,7 +332,10 @@ def compress(video: Video, cfg: CodecConfig, reversible: bool = True,
     ``reversible``: integer 5/3 texture path; with ``lossless=True``
     (default when reversible and ``quantization_texture <= 0``) nothing is
     truncated.  Otherwise blocks are truncated at the per-subband slope
-    thresholds of ``cfg.slopes()``."""
+    thresholds of ``cfg.slopes()``.  ``cfg.texture_backend`` other than
+    "internal" routes the texture through :mod:`.codec.backends`."""
+    if cfg.texture_backend != "internal":
+        return _compress_with_backend(video, cfg, device=device)
     return compress_finish(compress_dispatch(video, cfg, reversible, delta,
                                              lossless, device=device))
 
@@ -292,7 +364,16 @@ def compress_chunks(chunks, gop_cfg: CodecConfig,
     GOP ``g``'s stats fetch runs before GOP ``g+window``'s dispatch, and
     the host entropy coding of GOP ``g`` overlaps the device work queued
     for the GOPs after it.  ``progress(index, stream)`` is called as each
-    GOP's stream is finished, in order."""
+    GOP's stream is finished, in order.  A texture backend codes on the
+    host, GOP after GOP, with no pipeline."""
+    if gop_cfg.texture_backend != "internal":
+        out = []
+        for i, chunk in enumerate(chunks):
+            vs = _compress_with_backend(chunk, gop_cfg, device=device)
+            if progress is not None:
+                progress(i, vs)
+            out.append(vs)
+        return out
     pendings: List[dict] = []
     out: List[VideoStream] = []
 
@@ -335,13 +416,13 @@ def expand(vs: VideoStream, threshold: float = 0.0,
     drop the finest temporal levels (TS).  ``to_host=False`` returns uint8
     planes on ``device`` (the staged decode), after waiting for them."""
     cfg = vs.cfg
-    ly, lu, lv = _decode_plane_set(vs.low, threshold, device)
+    ly, lu, lv = _decode_plane_set(vs.low, threshold, device=device)
     use_levels = vs.levels[discard_TRLs:]
 
     lev_data = []
     residue_fields = []
     for lev in use_levels:
-        hy, hu, hv = _decode_plane_set(lev.high, threshold, device)
+        hy, hu, hv = _decode_plane_set(lev.high, threshold, device=device)
         with trace.stage("decode.motion"):
             res = [codestream.decode_motion_field(m) for m in lev.motion]
         if res:

@@ -108,9 +108,11 @@ def _slope_u16(s: float) -> int:
 # ------------------------------------------------- encoded frame (de)ser
 
 def _write_frame(out: bytearray, ef) -> None:
-    if not isinstance(ef, EncodedFrame):
-        raise NotImplementedError("texture backend frames are not ported "
-                                  "yet")
+    from . import backends
+    if isinstance(ef, backends.BackendFrame):
+        out.append(1)
+        backends.write_frame(out, ef, _wvarint)
+        return
     out.append(0)
     out += struct.pack("<HHBBf BB", ef.H, ef.W, ef.levels,
                        1 if ef.reversible else 0, ef.delta,
@@ -151,8 +153,8 @@ def _read_frame(r: _Reader, ver: int = VERSION):
         tag = r.data[r.pos]
         r.pos += 1
         if tag == 1:
-            raise NotImplementedError("texture backend frames are not "
-                                      "ported yet")
+            from . import backends
+            return backends.read_frame(r)
     H, W, levels, rev, delta, cbs, coder = r.struct("<HHBBf BB")
     nblocks = r.varint()
     blocks: List[EncodedBlock] = []

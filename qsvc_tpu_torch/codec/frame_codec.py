@@ -433,16 +433,44 @@ def _scatter_tiles(tiles: torch.Tensor, pos: torch.Tensor,
     return packed
 
 
-def decode_frames(efs: List[EncodedFrame], threshold: float,
-                  device) -> torch.Tensor:
+def encode_frames(planes, levels: int, reversible: bool = True,
+                  delta: float = 0.125, codeblock_size: int = 64,
+                  min_threshold: float = 0.0, coder: str = "mq", *, device
+                  ) -> List[EncodedFrame]:
+    """Encode a stack of component planes (N, H, W), a numpy array or a
+    tensor, on ``device``: one DWT+quantize+R-D pass, one native batch
+    over the kept code-blocks of all frames.  The serial wrapper of the
+    dispatch / select / finish stages that :mod:`..api` pipelines."""
+    if not isinstance(planes, torch.Tensor):
+        planes = torch.from_numpy(np.ascontiguousarray(planes))
+    planes = planes.to(device)
+    pending = encode_frames_dispatch_sparse(planes, levels, reversible,
+                                            delta, codeblock_size,
+                                            min_threshold, coder)
+    stats = tuple(t.cpu().numpy() for t in pending[2:5])
+    selected = encode_frames_select_sparse(pending, stats)
+    if isinstance(selected[1], torch.Tensor):
+        selected = selected[:1] + (selected[1].cpu().numpy(),) + selected[2:]
+    H, W = planes.shape[1], planes.shape[2]
+    return encode_frames_finish_sparse(selected, H, W, min_threshold, coder)
+
+
+def decode_frames(efs: List[EncodedFrame], threshold: float = 0.0,
+                  discard_levels: int = 0, *, device) -> torch.Tensor:
     """Decode a stack of same-geometry frames with ONE native batch
     entropy decode and ONE dequantize+inverse-DWT pass on ``device``;
-    returns (N, H, W) int32 on ``device``.
+    returns (N, H', W') int32 on ``device``.
+
+    ``discard_levels = d`` drops the ``d`` finest resolution levels (SS):
+    their detail blocks are skipped and the result has the geometry of
+    the d-times reduced image (the LL_d band).
 
     Only the coded code-block tiles cross to the device when they cover
     under half of the planes (at lossy operating points the packed
     planes are almost all zeros); otherwise the planes are decoded into
     a dense host stack and uploaded whole."""
+    if not efs:
+        return torch.zeros((0, 0, 0), dtype=torch.int32, device=device)
     ef0 = efs[0]
     H, W, levels = ef0.H, ef0.W, ef0.levels
     by_key = {}
@@ -453,6 +481,8 @@ def decode_frames(efs: List[EncodedFrame], threshold: float,
     with trace.stage("decode.todo"):
         for n, ef in enumerate(efs):
             for blk in ef.blocks:
+                if blk.level <= discard_levels and blk.band != "LL":
+                    continue
                 np_ = (blk.num_passes if threshold <= 0
                        else blk.passes_for_threshold(threshold))
                 if np_ == 0 or not blk.data:
@@ -462,6 +492,8 @@ def decode_frames(efs: List[EncodedFrame], threshold: float,
                 b = by_key[blk.band_key]
                 positions.append((n, b.y0 + blk.y0, b.x0 + blk.x0))
 
+    Hd = dwt2d._level_sizes(H, discard_levels)[-1]
+    Wd = dwt2d._level_sizes(W, discard_levels)[-1]
     coded_area = sum(b[3][0] * b[3][1] for b in todo)
     d = torch.tensor(ef0.delta, dtype=torch.float32, device=device)
     if coded_area * 2 < len(efs) * H * W:
@@ -481,12 +513,38 @@ def decode_frames(efs: List[EncodedFrame], threshold: float,
         with trace.stage("decode.dispatch", tiles=len(todo)):
             packed = _scatter_tiles(torch.from_numpy(tile_arr).to(device),
                                     torch.from_numpy(pos).to(device),
-                                    len(efs), H, W)
+                                    len(efs), Hd, Wd)
     else:
         with trace.stage("decode.native", blocks=len(todo), dense=True):
             dense = np.zeros((len(efs), H, W), np.int32)
             fast.decode_packed_planes(todo, positions, dense,
                                       coder=ef0.coder)
-        packed = torch.from_numpy(dense).to(device)
+        packed = torch.from_numpy(
+            np.ascontiguousarray(dense[:, :Hd, :Wd])).to(device)
     with trace.stage("decode.idwt_dispatch"):
-        return _dequant_idwt(packed, levels, ef0.reversible, d)
+        return _dequant_idwt(packed, levels - discard_levels, ef0.reversible,
+                             d)
+
+
+def encode_frame(plane, levels: int, reversible: bool = True,
+                 delta: float = 0.125, codeblock_size: int = 64,
+                 min_threshold: float = 0.0, coder: str = "mq", *, device
+                 ) -> EncodedFrame:
+    """Encode one component plane (uint8-range values) on ``device``.
+
+    ``min_threshold``: weighted-slope floor — planes whose distortion-length
+    slope falls well below it are never coded (they cannot survive
+    truncation at that threshold), which skips most deep bit-planes at
+    lossy operating points."""
+    stack = plane if isinstance(plane, torch.Tensor) else np.asarray(plane)
+    return encode_frames(stack[None], levels, reversible, delta, codeblock_size,
+                         min_threshold, coder, device=device)[0]
+
+
+def decode_frame(ef: EncodedFrame, threshold: float = 0.0,
+                 discard_levels: int = 0, *, device) -> torch.Tensor:
+    """Decode one frame on ``device``, optionally truncating by slope
+    threshold (QS) and discarding the finest ``discard_levels``
+    resolution levels (SS); with ``discard_levels = d`` the (H', W') int32
+    plane has the dimensions of the d-times-reduced image."""
+    return decode_frames([ef], threshold, discard_levels, device=device)[0]

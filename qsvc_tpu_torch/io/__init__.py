@@ -1,1 +1,2 @@
-from .yuv import Video, psnr, synthetic_video, video_psnr  # noqa: F401
+from .yuv import (Video, read_yuv, write_yuv, synthetic_video,  # noqa: F401
+                  parse_geometry, psnr, video_psnr)

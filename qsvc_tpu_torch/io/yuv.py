@@ -1,16 +1,22 @@
-"""YUV 4:2:0 sequences: the frame container, synthetic test sequences and
-PSNR (copied from ``qsvc_tpu/io/yuv.py``; file I/O is not ported yet).
+"""YUV 4:2:0 sequences: the frame container, raw ``.yuv`` and VIX file
+I/O, synthetic test sequences and PSNR (copied from ``qsvc_tpu/io/yuv.py``).
 
-A sequence holds three arrays — Y (N,H,W) and U,V (N,H/2,W/2) — as numpy
-arrays or, once uploaded, torch tensors.
+Raw files hold 8-bit planar I420 frames back to back (name convention
+``name_WxHxFPSx420xFRAMES``).  A sequence holds three arrays — Y (N,H,W)
+and U,V (N,H/2,W/2) — as numpy arrays or, once uploaded, torch tensors;
+the file functions take and give numpy arrays.
 """
 
 from __future__ import annotations
 
+import os
+import re
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
+
+_NAME_RE = re.compile(r"(\d+)x(\d+)x(\d+)x420x(\d+)")
 
 
 @dataclass
@@ -37,6 +43,90 @@ class Video:
 
     def planes(self):
         return (self.y, self.u, self.v)
+
+
+def parse_geometry(filename: str) -> Optional[Tuple[int, int, int, int]]:
+    """Parse W, H, FPS, frames from the reference naming convention."""
+    m = _NAME_RE.search(os.path.basename(filename))
+    if not m:
+        return None
+    w, h, fps, n = map(int, m.groups())
+    return w, h, fps, n
+
+
+def read_yuv(path: str, width: int, height: int,
+             frames: Optional[int] = None) -> Video:
+    frame_bytes = width * height * 3 // 2
+    size = os.path.getsize(path)
+    total = size // frame_bytes
+    n = total if frames is None else min(frames, total)
+    data = np.fromfile(path, dtype=np.uint8, count=n * frame_bytes)
+    data = data.reshape(n, frame_bytes)
+    ysz = width * height
+    csz = ysz // 4
+    y = data[:, :ysz].reshape(n, height, width)
+    u = data[:, ysz:ysz + csz].reshape(n, height // 2, width // 2)
+    v = data[:, ysz + csz:].reshape(n, height // 2, width // 2)
+    return Video(y.copy(), u.copy(), v.copy())
+
+
+def write_yuv(path: str, video: Video) -> None:
+    n = video.frames
+    with open(path, "wb") as f:
+        for i in range(n):
+            f.write(np.ascontiguousarray(video.y[i], dtype=np.uint8).tobytes())
+            f.write(np.ascontiguousarray(video.u[i], dtype=np.uint8).tobytes())
+            f.write(np.ascontiguousarray(video.v[i], dtype=np.uint8).tobytes())
+
+
+def read_vix(path: str) -> Video:
+    """Read a VIX container (the reference's ``vix2raw.c`` input format):
+    a text header — magic line, video section (2 lines), color section
+    (2 lines), image section (2 lines + ``x y c`` dims + ``c`` subsampling
+    pairs) — followed by the raw planar payload."""
+    with open(path, "rb") as f:
+        for _ in range(7):                  # magic + 3 sections x 2 lines
+            f.readline()
+        dims = f.readline().split()
+        x, y, c = int(dims[0]), int(dims[1]), int(dims[2])
+        ss = []
+        toks: list = []
+        while len(toks) < 2 * c:
+            toks += f.readline().split()
+        for i in range(c):
+            ss.append((int(toks[2 * i]), int(toks[2 * i + 1])))
+        payload = f.read()
+    fsz = sum((x // sx) * (y // sy) for sx, sy in ss)
+    n = len(payload) // fsz
+    data = np.frombuffer(payload, np.uint8, count=n * fsz).reshape(n, fsz)
+    ysz = x * y
+    csz = (x // ss[1][0]) * (y // ss[1][1]) if c > 1 else 0
+    yv = data[:, :ysz].reshape(n, y, x)
+    if c > 1:
+        u = data[:, ysz:ysz + csz].reshape(n, y // ss[1][1], x // ss[1][0])
+        v = data[:, ysz + csz:ysz + 2 * csz].reshape(
+            n, y // ss[2][1], x // ss[2][0])
+    else:
+        u = np.full((n, y // 2, x // 2), 128, np.uint8)
+        v = np.full((n, y // 2, x // 2), 128, np.uint8)
+    return Video(yv.copy(), u.copy(), v.copy())
+
+
+def vix_to_raw(in_path: str, out_path: str) -> int:
+    """Strip the VIX header, writing the raw payload (``vix2raw.c:22-121``).
+    Returns payload bytes written."""
+    with open(in_path, "rb") as f:
+        for _ in range(7):
+            f.readline()
+        dims = f.readline().split()
+        c = int(dims[2])
+        toks: list = []
+        while len(toks) < 2 * c:
+            toks += f.readline().split()
+        payload = f.read()
+    with open(out_path, "wb") as f:
+        f.write(payload)
+    return len(payload)
 
 
 def synthetic_video(frames: int, height: int, width: int,

@@ -40,7 +40,7 @@ class MCTFStream(NamedTuple):
     levels: Tuple[LevelData, ...]   # level 1 (finest) .. TRLs-1
 
     @classmethod
-    def from_numpy(cls, stream, device="cpu") -> "MCTFStream":
+    def from_numpy(cls, stream, *, device) -> "MCTFStream":
         """Convert any stream with these fields (numpy arrays, or the JAX
         package's ``MCTFStream``) into torch tensors on ``device``."""
         def t(a):

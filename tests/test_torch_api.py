@@ -19,6 +19,7 @@ from qsvc_tpu.io import synthetic_video, video_psnr
 from qsvc_tpu_torch import api
 from qsvc_tpu_torch.codec.codestream import VideoStream
 from qsvc_tpu_torch.config import CodecConfig
+from qsvc_tpu_torch.mctf.transform import MCTFStream
 
 torch.set_num_threads(1)
 
@@ -137,7 +138,11 @@ def test_lossy_close_to_jax():
 def test_port_does_not_import_jax():
     code = ("import sys, qsvc_tpu_torch.api, qsvc_tpu_torch.mctf.transform, "
             "qsvc_tpu_torch.parallel.distributed, "
-            "qsvc_tpu_torch.parallel.transform;"
+            "qsvc_tpu_torch.parallel.transform, qsvc_tpu_torch.cli, "
+            "qsvc_tpu_torch.scal.extract, qsvc_tpu_torch.scal.info, "
+            "qsvc_tpu_torch.scal.rd, qsvc_tpu_torch.scal.anchor, "
+            "qsvc_tpu_torch.codec.backends, qsvc_tpu_torch.codec.j2k, "
+            "qsvc_tpu_torch.utils.artifacts;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'qsvc_tpu.')) or m == 'qsvc_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -152,3 +157,5 @@ def test_device_is_required():
     with pytest.raises(TypeError):
         api.compress(vid, CodecConfig(pixels_in_x=32, pixels_in_y=32,
                                       TRLs=1))
+    with pytest.raises(TypeError):
+        MCTFStream.from_numpy(MCTFStream(vid.y, vid.u, vid.v, ()))

@@ -144,7 +144,7 @@ def test_decode_frames_matches_jax(reversible, q, threshold):
                                or b.passes_for_threshold(threshold)))
     assert (coded * 2 < planes.size) == (not reversible)   # which branch
     want = np.asarray(jfc.decode_frames(efs, threshold))
-    got = frame_codec.decode_frames(efs, threshold, "cpu").numpy()
+    got = frame_codec.decode_frames(efs, threshold, device="cpu").numpy()
     if reversible:
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, planes)
@@ -173,7 +173,7 @@ def test_int16_overflow_takes_the_packed_path():
     jsel = jfc.encode_frames_select_sparse(jp, thr, "bp")
     assert jsel[0] == "packed"
     jefs = jfc.encode_frames_finish_sparse(jsel, 64, 64, thr, "bp")
-    got = frame_codec.decode_frames(efs, 0.0, "cpu").numpy()
+    got = frame_codec.decode_frames(efs, 0.0, device="cpu").numpy()
     want = np.asarray(jfc.decode_frames(jefs))
     assert np.abs(got - want).max() <= 1
     assert np.abs(got - planes).max() <= 1

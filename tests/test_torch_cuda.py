@@ -257,6 +257,21 @@ def test_mc_kernels_exact_off_the_fast_paths(cuda, bs, sr, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("edge", [False, True], ids=["random", "all_edge"])
+@pytest.mark.parametrize("sr", [1, 2, 4, 8])
+@pytest.mark.parametrize("bs", [4, 8])
+def test_mc_kernels_exact_small_blocks(cuda, bs, sr, edge):
+    """K2, K3 and K4 where a spatially reduced decode of the flagship
+    runs them: discarding d = 4 (3) resolution levels of 1920x1088 with
+    blocks of 64 leaves 8 pairs of 68x120 (136x240) frames in blocks of
+    4 (8), at the search ranges 1, 2, 4 and 8 of its temporal levels.
+    Blocks of 4 take K2's element-wise stores and clamped loads."""
+    rng = np.random.default_rng(bs * 10 + sr + 100 * edge)
+    _assert_mc_exact(*_mc_inputs(rng, 8, 3, 17, 30, bs, sr, edge, cuda),
+                     bs, sr)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bs", [128, 256, 512])
 def test_k2_exact_large_blocks(cuda, bs):
     """K2 at the sub-pixel prediction's block_size << a, with the edge pad

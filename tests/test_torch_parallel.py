@@ -236,7 +236,8 @@ def chunk_of(stream, cfg, k):
         levels.append(tuple(a[rank * n:(rank + 1) * n] for a in lev))
     n = k * (S >> (T - 1))
     low = [a[rank * n:(rank + 1) * n + 1] for a in stream["low"]]
-    return MCTFStream.from_numpy(MCTFStream(*low, tuple(levels)))
+    return MCTFStream.from_numpy(MCTFStream(*low, tuple(levels)),
+                                device="cpu")
 
 
 out = {}

@@ -80,8 +80,9 @@ def test_synthesize_jax_stream_matches_jax(case):
     equals the JAX synthesis."""
     kw, vid, jstream = case
     want = jtransform.synthesize_jit(jstream, JaxConfig(**kw))
-    got = transform.synthesize(transform.MCTFStream.from_numpy(jstream),
-                               CodecConfig(**kw))
+    got = transform.synthesize(
+        transform.MCTFStream.from_numpy(jstream, device="cpu"),
+        CodecConfig(**kw))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
