@@ -19,15 +19,21 @@ Phases, one line each; any failure exits non-zero before the last line:
    search range 32 + 1, then at each flagship level's own call, (pairs,
    search range) = (8, 4), (4, 8), (2, 16), (1, 32), with the vectors of
    one MCTF analysis of phase 4's first GOP and with random vectors up
-   to search range + 1 — each kernel against its plain PyTorch version
-   on the same card, exact equality, with CUDA-event times (batches of
-   calls back to back, after a warm-up) beside the kernel's bound; then
+   to search range + 1, and at each level of phase 8d's scaling
+   configuration (512x512, block 32: (2, 4) and (1, 8)) with that run's
+   own vectors and random ones — each kernel against its plain PyTorch
+   version on the same card, exact equality, with CUDA-event times
+   (batches of calls back to back, after a warm-up) beside the kernel's
+   bound; then
    K1 where its window is wider: the sub-pixel calls of a flagship GOP
    at accuracies 1-3 (blocks of 128, 256 and 512 on frames interpolated
    2, 4 and 8 times, at each level's pairs and cap), one block of 1024
    and borders 1-4 at level 1, with the per-GOP sums at each accuracy;
    and K2 at the sub-pixel prediction's blocks of 64 << a, a = 1-3 (at
-   a = 3 the plain version runs on 2 of the 8 pairs, for memory);
+   a = 3 the plain version runs on 2 of the 8 pairs, for memory); then
+   K2 and K3 at the calls of a decode reduced by SS at d = 1-4 (blocks of
+   32, 16, 8 and 4 on frames of 1088x1920 >> d), timed beside their
+   bounds;
 3. correctness on the card: the MCTF analysis and synthesis of a small
    sequence on the card equal the plain CPU run, whole-pixel, at
    sub-pixel accuracies 1-3, with OLA (alone and with a = 1) and with a
@@ -61,15 +67,28 @@ Phases, one line each; any failure exits non-zero before the last line:
    and on the CPU, bit-identical, and FS rate control at a third of a
    lossy GOP's bytes; (c) one flagship GOP through the cp, zlib (exact at
    update 0) and ltw (PSNR-Y >= 25 dB) texture backends, with the
-   launches of their encodes.
+   launches of their encodes;
+8. the rest of the JAX package's surface at the flagship's width: (a)
+   the Haar, 13/7 and S+P banks at 4 levels over 17 lumas (exact round
+   trips, card == CPU on 2 frames, ms and device operations per call),
+   Haar up/downsampling of the chroma and ``border.pad_edge``; (b)
+   ``estimate_pair`` (K1) and ``decorrelate_pair``/``correlate_pair``
+   (K2) on one triple, card == CPU, the odd frame back exactly; (c) the
+   spec MQ/Tier-1 coder against the native one on 64 quantized 32x32
+   code-blocks of all four bands; (d) ``measure_scaling`` at n = 1 (K4
+   in a spawned rank) at the JAX default configuration and at the
+   flagship's, and over nccl across every card where there are several;
+   (e) the dense two-stage encode against ``_dwt_quant``, int16 and the
+   int32 overflow path.
 
 The whole run takes 75-85 s on an H100 before phase 7 (phase 2's wide K1
 calls and their plain versions are the largest part of what phases 2, 3
 and 6 added).
 
 The second-to-last line is a JSON object with one entry per kernel
-(launches counted on that kernel's main path: phase 4 for K1-K3, phase
-5a for K4; times and bound at the first shape phase 2 names for it);
+(launches counted on that kernel's main paths: phase 4 for K1-K3, phase
+5a for K4, plus phase 8's K1, K2 and K4 paths; times and bound at the
+first shape phase 2 names for it);
 the last line is ``{"ok": true, "device": {...}}`` with the number of
 cards the run used.  Without a CUDA device the script exits 1 and
 prints no result.
@@ -84,6 +103,7 @@ K1-K4, so ``library_ms`` is null.
 """
 
 import collections
+import functools
 import json
 import os
 import statistics
@@ -397,11 +417,17 @@ def phase_kernel_parity(dev):
             for name, row in lv.items():
                 results[name] = (max(results[name][0], row[0]),) + \
                     results[name][1:]
-
     del prev, nxt, contrib
+    for lv in _scaling_level_calls(dev, rand_planes):
+        for name, row in lv.items():
+            results[name] = (max(results[name][0], row[0]),) + \
+                results[name][1:]
+
     err = _k2_subpixel_calls(dev)
     results["mc_predict"] = (max(results["mc_predict"][0], err),) + \
         results["mc_predict"][1:]
+    for name, err in _ss_decode_calls(dev).items():
+        results[name] = (max(results[name][0], err),) + results[name][1:]
 
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
@@ -449,6 +475,58 @@ def _k2_subpixel_calls(dev, seed=2):
     return worst
 
 
+def _ss_decode_calls(dev, seed=3):
+    """K2 and K3 where the decode of a flagship stream reduced by SS at
+    d = 1-4 calls them: frames of 1088x1920 >> d in blocks of 64 >> d,
+    at each temporal level's (pairs, search range) of the reduced
+    configuration ((8, 4, 2, 1) pairs, search 4 >> d doubling per level),
+    random planes and |mv| <= search range + 1; each exact against its
+    plain version, timed beside its byte bound.  Returns the largest
+    max_abs_err by kernel."""
+    from qsvc_tpu_torch.mctf import predict, update
+    from qsvc_tpu_torch.ops import cuda_mc
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"mc_predict": 0.0, "mc_update2": 0.0}
+    for d in (1, 2, 3, 4):
+        H, W, bs = FLAGSHIP_H >> d, FLAGSHIP_W >> d, FLAGSHIP_BS >> d
+        prev, nxt = (torch.randint(0, 256, (8, 3, H, W), generator=gen,
+                                   device=dev, dtype=torch.int16)
+                     for _ in range(2))
+        contrib = torch.randint(-32, 32, (8, 3, H, W), generator=gen,
+                                device=dev, dtype=torch.int16)
+        rows = []
+        for lvl, (P, _) in enumerate(FLAGSHIP_LEVELS):
+            sr = max(4 >> d, 1) << lvl
+            mv = torch.randint(-sr - 1, sr + 2, (P, 2, 2, H // bs, W // bs),
+                               generator=gen, device=dev, dtype=torch.int32)
+            args = (prev[:P], nxt[:P], mv, bs, 4 * sr)
+            k2 = cuda_mc.predict(*args)
+            worst["mc_predict"] = max(worst["mc_predict"], _max_err(
+                k2, predict.predict_frame(*args)))
+            k3 = cuda_mc.update2(contrib[:P], mv, bs, sr)
+            want = torch.stack([update._update_sums(
+                contrib[:P], mv[:, i, 0], mv[:, i, 1], bs, sr)
+                for i in range(2)], dim=1)
+            worst["mc_update2"] = max(worst["mc_update2"],
+                                      _max_err(k3, want))
+            k2_fn = functools.partial(cuda_mc.predict, *args)
+            k3_fn = functools.partial(cuda_mc.update2, contrib[:P], mv, bs, sr)
+            b2 = _bound(_nbytes(prev[:P], nxt[:P], mv, k2), 4 * k2.numel())
+            b3 = _bound(_nbytes(contrib[:P], mv, k3), k3.numel())
+            cells = []
+            for name, fn, b in (("K2", k2_fn, b2), ("K3", k3_fn, b3)):
+                dev_ms = _graph_ms(fn)
+                cells.append(f"{name} {dev_ms:.4f} ms ({b[0] / dev_ms:.0%} "
+                             f"of {b[0]:.4f} {b[1]}; back to back "
+                             f"{_cuda_ms(fn):.4f})")
+            rows.append(f"P={P} sr={sr}: {', '.join(cells)}")
+        print(f"  SS d={d} decode calls ({H}x{W}, blocks of {bs}; device "
+              f"ms of CUDA-graph replays, bounds in ms): {'; '.join(rows)}",
+              flush=True)
+    print(f"  SS decode calls max_abs_err: {worst}", flush=True)
+    return worst
+
+
 def _flagship_vectors(dev):
     """The vectors each temporal level of the flagship hands K2 and K3:
     one MCTF analysis, on the card, of phase 4's first GOP."""
@@ -472,6 +550,34 @@ def _flagship_vectors(dev):
               f"{int(lev.mv.abs().max())} at search range {sr}",
               flush=True)
     return [lev.mv.contiguous() for lev in levels]
+
+
+def _scaling_level_calls(dev, rand_planes):
+    """K2, K3 and K4 (each direction) at the calls of phase 8d's n = 1
+    scaling point at its default configuration (512x512, block 32, TRLs
+    3): each temporal level's (pairs, search range), with the vectors of
+    that rank's MCTF analysis (same video, same GOP) and with random ones
+    up to search range + 1.  Returns _mc_parity's rows, one per call."""
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.mctf import transform
+    from qsvc_tpu_torch.parallel import distributed as pdist
+    cfg = pdist.SCALING_CONFIG.replace(GOPs=1)
+    H, W = cfg.pixels_in_y, cfg.pixels_in_x
+    vid = synthetic_video(cfg.pictures, H, W, seed=0)
+    levels = transform.analyze(
+        *(torch.from_numpy(p).to(dev) for p in vid.planes()), cfg).levels
+    rows = []
+    for lp, lev in zip(cfg.level_schedule(), levels):
+        P, sr, bs = lev.mv.shape[0], lp.search_range, lp.block_size
+        prev, nxt = rand_planes((P, 3, H, W)), rand_planes((P, 3, H, W))
+        contrib = rand_planes((P, 3, H, W), -32, 32)
+        mv_rand = rand_planes((P, 2, 2, H // bs, W // bs), -sr - 1, sr + 2,
+                              np.int32)
+        for kind, mv in (("ME", lev.mv.contiguous()), ("random", mv_rand)):
+            rows.append(_mc_parity(
+                f"scaling {H}x{W} block {bs} level P={P} sr={sr} {kind}",
+                prev, nxt, contrib, mv, bs, sr))
+    return rows
 
 
 def _mc_parity(label, prev, nxt, contrib, mv, bs, sr):
@@ -748,8 +854,8 @@ def _halo_video(cfg):
                            seed=5)
 
 
-def _halo_rank(rank, world, store, outdir, device, cfg):
-    """One rank of phase 5b (a process of torch.multiprocessing.spawn)."""
+def _halo_rank(rank, world, store, device, cfg):
+    """One rank of phase 5b (a process of ``pdist.run_ranks``)."""
     import datetime
     import torch.distributed as dist
     from qsvc_tpu_torch.ops import cuda_lib
@@ -772,20 +878,18 @@ def _halo_rank(rank, world, store, outdir, device, cfg):
         st = ptransform.analyze_sharded(
             *pdist.shard_video_gops(vid, cfg, mesh), cfg, mesh)
         rec = ptransform.synthesize_sharded(st, cfg, mesh)
-        np.savez(os.path.join(outdir, f"rank{rank}.npz"),
-                 data=np.frombuffer(data, np.uint8),
-                 launches=np.asarray(launches),
-                 **{c: p.cpu().numpy() for c, p in zip("yuv", rec)})
         dist.barrier()      # no rank tears down while a peer still sends
+        return dict(data=data, launches=launches,
+                    **{c: p.cpu().numpy() for c, p in zip("yuv", rec)})
     finally:
         dist.destroy_process_group()
 
 
 def phase_halo(dev):
     """5b: two gloo ranks on this card against the sequential encode."""
-    import torch.multiprocessing as mp
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.mctf import transform
+    from qsvc_tpu_torch.parallel import distributed as pdist
     from qsvc_tpu_torch.parallel import mesh as pmesh
 
     cfg = _flagship_cfg(GOPs=2, quantization_texture=0)
@@ -793,20 +897,15 @@ def phase_halo(dev):
     world = 2
     card = f"cuda:{torch.cuda.current_device()}"
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        try:
-            mp.spawn(_halo_rank, args=(world, os.path.join(tmp, "store"),
-                                       tmp, card, cfg), nprocs=world,
-                     join=True)
-        except Exception as e:          # a rank failed: the phase fails
-            raise SystemExit(f"phase 5b: a rank failed: {e}")
-        ranks_s = time.time() - t0
-        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-                 for r in range(world)]
+    t0 = time.time()
+    try:
+        ranks = pdist.run_ranks(_halo_rank, world, card, cfg)
+    except RuntimeError as e:           # a rank failed: the phase fails
+        raise SystemExit(f"phase 5b: a rank failed: {e}")
+    ranks_s = time.time() - t0
     want = api.compress(vid, cfg, reversible=True, device=dev).to_bytes()
     for r, res in enumerate(ranks):
-        if res["data"].tobytes() != want:
+        if res["data"] != want:
             raise SystemExit(f"phase 5b: rank {r}'s compress_distributed "
                              f"differs from the sequential api.compress")
         if int(res["launches"]) == 0:
@@ -1029,6 +1128,260 @@ def phase_surface(dev):
           f"{time.time() - t_start:.3f} s", flush=True)
 
 
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) of one call of ``fn``,
+    as ``torch.profiler`` records them on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _rest_filter_banks(dev, vid):
+    """8a: the Haar, 13/7 and S+P banks at 4 levels over the flagship's
+    17 lumas (int32, minus 128) on the card: exact round trips, the card
+    equal to the CPU on 2 frames, ms and device operations per call;
+    then ``upsample2``/``downsample2`` with Haar on the 4:2:0 chroma
+    stack and ``border.pad_edge`` of the luma stack, card == CPU."""
+    from qsvc_tpu_torch.ops import border, dwt2d
+    x = torch.from_numpy(vid.y.astype(np.int32) - 128).to(dev)
+    x_cpu = x[:2].cpu()
+    rows = []
+    for filt in ("haar", "13/7", "sp"):
+        a = dwt2d.analyze(x, 4, filt)
+        s = dwt2d.synthesize(a, 4, filt)
+        if not torch.equal(s, x):
+            raise SystemExit(f"phase 8a: {filt} round trip differs")
+        a_cpu = dwt2d.analyze(x_cpu, 4, filt)
+        if not (torch.equal(a[:2].cpu(), a_cpu) and torch.equal(
+                dwt2d.synthesize(a[:2], 4, filt).cpu(),
+                dwt2d.synthesize(a_cpu, 4, filt))):
+            raise SystemExit(f"phase 8a: {filt} on the card differs from "
+                             f"the CPU")
+        ms = [_cuda_ms(f, reps=3, batch=1, warmup=1) for f in (
+            lambda: dwt2d.analyze(x, 4, filt),
+            lambda: dwt2d.synthesize(a, 4, filt))]
+        ops = [_device_ops(f) for f in (
+            lambda: dwt2d.analyze(x, 4, filt),
+            lambda: dwt2d.synthesize(a, 4, filt))]
+        rows.append(f"{filt} analyze {ms[0]:.3f} ms ({ops[0]} device ops), "
+                    f"synthesize {ms[1]:.3f} ms ({ops[1]})")
+    c = torch.from_numpy(vid.u.astype(np.int32)).to(dev)
+    for name, got, want in (
+            ("upsample2", dwt2d.upsample2(c, "haar")[:2],
+             dwt2d.upsample2(c[:2].cpu(), "haar")),
+            ("downsample2", dwt2d.downsample2(c, "haar")[:2],
+             dwt2d.downsample2(c[:2].cpu(), "haar")),
+            ("pad_edge", border.pad_edge(x, 16)[:2],
+             border.pad_edge(x_cpu, 16))):
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"phase 8a: {name} on the card differs from "
+                             f"the CPU")
+    print(f"  8a filter banks, 4 levels of {tuple(x.shape)} int32, exact "
+          f"round trips, card == CPU on 2 frames: {'; '.join(rows)}; Haar "
+          f"upsample2/downsample2 of {tuple(c.shape)} chroma and pad_edge "
+          f"16 of the lumas card == CPU", flush=True)
+
+
+def _rest_pair_steps(dev, vid):
+    """8b: one flagship triple at level 1 (block 64, search 4):
+    ``estimate_pair`` (K1) and ``decorrelate_pair``/``correlate_pair``
+    (K2) on the card against the CPU, and the odd frame back exactly.
+    Returns the launches of each step's run."""
+    from qsvc_tpu_torch.mctf import me, predict
+    from qsvc_tpu_torch.ops import cuda_lib
+    y, u, v = (torch.from_numpy(p[:3].astype(np.int16)) for p in
+               vid.planes())
+    on_card = [p.to(dev) for p in (y, u, v)]
+    bs, sr = FLAGSHIP_BS, 4
+
+    def steps(yd, ud, vd):
+        mv = me.estimate_pair(yd[1], yd[0], yd[2], bs, sr)
+        refs = predict.refs_to_444(yd[0::2], ud[0::2], vd[0::2])
+        res = predict.decorrelate_pair((yd[1], ud[1], vd[1]), refs[0],
+                                       refs[1], mv, bs, sr)
+        back = predict.correlate_pair(res[:3], refs[0], refs[1], res.mv_out,
+                                      res.is_B, bs, sr)
+        return mv, res, back
+    cuda_lib.reset_launches()
+    mv, res, back = steps(*on_card)
+    counts = dict(cuda_lib.launches)
+    mv_c, res_c, _ = steps(y, u, v)
+    if not torch.equal(mv.cpu(), mv_c):
+        raise SystemExit("phase 8b: estimate_pair on the card differs from "
+                         "the CPU")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(res, res_c)):
+        raise SystemExit("phase 8b: decorrelate_pair on the card differs "
+                         "from the CPU")
+    if not all(torch.equal(a.cpu(), b) for a, b in
+               zip(back, (y[1], u[1], v[1]))):
+        raise SystemExit("phase 8b: correlate_pair does not give back the "
+                         "odd frame")
+    if counts.get("me_refine", 0) == 0 or counts.get("mc_predict", 0) == 0:
+        raise SystemExit(f"phase 8b: K1 and K2 must launch: {counts}")
+    ms = _cuda_ms(lambda: steps(*on_card), reps=3, batch=1, warmup=1)
+    print(f"  8b one-pair steps of a flagship triple (block {bs}, search "
+          f"{sr}): estimate_pair, decorrelate_pair (B frame: "
+          f"{bool(res.is_B)}) and correlate_pair card == CPU, odd frame "
+          f"back exactly; launches {counts}; the three steps {ms:.3f} ms",
+          flush=True)
+    return counts
+
+
+def _spec_coder_block(job):
+    """One code-block of 8c (a process of a pool): the spec and the
+    native coder's streams, and their decodes at every truncation.
+    Returns (band, passes, spec s, native s, fault or None)."""
+    from qsvc_tpu_torch.codec import fast, tier1
+    band, c = job
+    fast.build_seconds()            # load the library outside the timing
+    t0 = time.perf_counter()
+    py = tier1.encode_codeblock(c, band)
+    t1 = time.perf_counter()
+    cc = fast.encode_codeblock(c, band)
+    t2 = time.perf_counter()
+    fault = None
+    if (cc.data, cc.msbs, cc.pass_ends) != (py.data, py.msbs, py.pass_ends):
+        fault = "the native stream differs from the spec coder's"
+    elif not np.allclose(cc.pass_dist, py.pass_dist, rtol=1e-9, atol=1e-6):
+        fault = "the pass distortions differ"
+    else:
+        for n in range(py.num_passes + 1):
+            if not np.array_equal(
+                    fast.decode_codeblock(py.data, py.msbs, n, c.shape,
+                                          band, py.pass_ends),
+                    tier1.decode_codeblock(py.data, py.msbs, n, c.shape,
+                                           band, py.pass_ends)):
+                fault = f"the decodes at {n} passes differ"
+                break
+    return band, py.num_passes, t1 - t0, t2 - t1, fault
+
+
+def _rest_spec_coder(dev, vid, seed=4):
+    """8c: 64 seeded 32x32 code-blocks, 16 from each band type, of the
+    flagship's quantized 9/7 lumas: the spec coder (``codec.tier1``) and
+    the native one give the same bytes, msbs and pass ends, and decode
+    alike at every truncation (the blocks spread over a pool of host
+    processes: the spec coder is pure Python); ms per block of each."""
+    import concurrent.futures
+    import multiprocessing
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec import frame_codec, subbands
+    cfg = _flagship_cfg()
+    delta = api._operating_point(cfg, False, None, None)[0]
+    q = frame_codec._dwt_quant(
+        torch.from_numpy(vid.y[:4]).to(dev), cfg.SRLs - 1, False,
+        torch.tensor(delta, dtype=torch.float32, device=dev)).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    layout = subbands.band_layout(FLAGSHIP_H, FLAGSHIP_W, cfg.SRLs - 1)
+    jobs = []
+    for band in ("LL", "LH", "HL", "HH"):
+        cand = [b for b in layout if b.band == band]
+        for _ in range(16):
+            b = cand[rng.integers(len(cand))]
+            y0 = b.y0 + int(rng.integers(b.h - 31))
+            x0 = b.x0 + int(rng.integers(b.w - 31))
+            jobs.append((band, q[rng.integers(len(q)), y0:y0 + 32,
+                                 x0:x0 + 32].astype(np.int64)))
+    workers = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        rows = list(ex.map(_spec_coder_block, jobs))
+    faults = [(band, f) for band, _, _, _, f in rows if f]
+    if faults:
+        raise SystemExit(f"phase 8c: spec and native coder differ: "
+                         f"{faults}")
+    k = len(rows)
+    print(f"  8c spec coder: {k} blocks of 32x32 "
+          f"({sum(r[1] for r in rows)} passes) in {workers} host "
+          f"processes, tier1 == native in bytes, msbs and pass ends, "
+          f"decodes equal at every truncation; encode "
+          f"{sum(r[2] for r in rows) / k * 1e3:.3f} ms per block (spec, "
+          f"pure Python) against {sum(r[3] for r in rows) / k * 1e3:.4f} "
+          f"(native)", flush=True)
+
+
+def _rest_scaling(dev, vid):
+    """8d: ``measure_scaling`` on this card at the JAX default
+    configuration and at the flagship's (TRLs 5, 1 GOP), and across
+    every card over nccl where there are several.  Phase 2 holds K4 at
+    both configurations' calls against its plain version (the flagship
+    levels, and ``_scaling_level_calls``).  Returns K4's launches
+    ({"mc_update1": n})."""
+    from qsvc_tpu_torch.parallel import distributed as pdist
+    k4 = 0
+    rows = []
+    for name, cfg in (("512x512 TRLs 3", None),
+                      ("flagship", _flagship_cfg(GOPs=1))):
+        res = pdist.measure_scaling(1, reps=2, cfg=cfg, device=dev.type)
+        n = res["launches"][1].get("mc_update1", 0)
+        if n == 0:
+            raise SystemExit(f"phase 8d: measure_scaling ({name}) never "
+                             f"launched K4: {res['launches']}")
+        k4 += n
+        rows.append(f"{name} fps_1 {res['fps_1']:.3f} (K4 launches {n})")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        res = pdist.measure_scaling(cards, reps=2, device=dev.type)
+        rows.append(f"nccl over {cards} cards: fps_n {res['fps_n']:.3f}, "
+                    f"efficiency {res['efficiency']:.4f}")
+    else:
+        rows.append("one card: n = 1 only")
+    print(f"  8d measure_scaling, one spawned rank per card: "
+          f"{'; '.join(rows)}", flush=True)
+    return {"mc_update1": k4}
+
+
+def _rest_dense_encode(dev, vid):
+    """8e: ``encode_frames_dispatch``/``fetch`` of the 17 flagship lumas
+    equal ``_dwt_quant`` (int16 on the host), and a 9/7 step of 1e-4,
+    whose indices overflow int16, takes the int32 path."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec import frame_codec
+    cfg = _flagship_cfg()
+    levels = cfg.SRLs - 1
+    delta = api._operating_point(cfg, False, None, None)[0]
+    planes = torch.from_numpy(vid.y).to(dev)
+    rows = []
+    for d, dtype in ((delta, np.int16), (1e-4, np.int32)):
+        got, sec = _timed(lambda: frame_codec.encode_frames_fetch(
+            frame_codec.encode_frames_dispatch(planes, levels, False, d,
+                                               device=dev)))
+        want = frame_codec._dwt_quant(
+            planes, levels, False,
+            torch.tensor(d, dtype=torch.float32, device=dev)).cpu().numpy()
+        if got.dtype != dtype or not np.array_equal(got, want):
+            raise SystemExit(f"phase 8e: dispatch/fetch at delta {d} gave "
+                             f"{got.dtype}, not _dwt_quant's {dtype.__name__}")
+        rows.append(f"delta {d:g}: {got.dtype} in {sec:.3f} s")
+    print(f"  8e dense two-stage encode of {tuple(planes.shape)} == "
+          f"_dwt_quant: {'; '.join(rows)}", flush=True)
+
+
+def phase_rest(dev):
+    """8: the rest of the JAX package's surface, at the flagship's width.
+    Returns the launches of its kernel paths (8b, 8d), each read just
+    after its own run."""
+    from qsvc_tpu_torch.io import synthetic_video
+    t_start = time.time()
+    torch.cuda.empty_cache()
+    vid = synthetic_video(17, FLAGSHIP_H, FLAGSHIP_W, seed=0)
+    secs = {}
+    counts = collections.Counter()
+    for name, fn in (("8a", _rest_filter_banks), ("8b", _rest_pair_steps),
+                     ("8c", _rest_spec_coder), ("8d", _rest_scaling),
+                     ("8e", _rest_dense_encode)):
+        t0 = time.time()
+        counts.update(fn(dev, vid) or {})
+        secs[name] = round(time.time() - t0, 3)
+    print(f"phase 8 the rest of the JAX surface: ok; phase "
+          f"{time.time() - t_start:.3f} s ({secs} s)", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1044,6 +1397,9 @@ def main() -> int:
     phase_halo(dev)
     phase_subpixel(dev)
     phase_surface(dev)
+    for name, n in phase_rest(dev).items():
+        if name in counts:
+            counts[name] += n
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

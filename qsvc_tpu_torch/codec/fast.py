@@ -6,8 +6,10 @@ ebcot.cpp``, with ``g++ -O3 -fopenmp`` into
 ``qsvc_tpu_torch/_build/libqsvc.so``.  The copy is byte-identical to the
 JAX package's ``qsvc_tpu/native/ebcot.cpp`` (a test holds the two
 together), so both packages write the same stream format and each
-decodes the other's containers.  There is no Python fallback coder: a
-failed build raises with the compiler's output.
+decodes the other's containers.  There is no fallback: every function
+here calls the library, and a failed build raises with the compiler's
+output.  :func:`available` only reports whether the library builds and
+loads.  The pure-Python spec twin is :mod:`.tier1`, reached by name.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import os
 import subprocess
 import threading
 import time
-from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .tier1 import CodeblockStream
 
 _BAND_CODE = {"LL": 0, "LH": 0, "HL": 1, "HH": 2}
 _MAX_PASSES = 3 * 64 + 1
@@ -31,22 +34,6 @@ SO_PATH = os.path.join(_PKG_DIR, "_build", "libqsvc.so")
 
 _lib = None
 _lib_lock = threading.Lock()
-
-
-@dataclass
-class CodeblockStream:
-    """Encoded code-block: byte stream + per-pass structure."""
-    data: bytes
-    msbs: int                      # number of magnitude bit-planes coded
-    pass_ends: List[int]           # cumulative byte offset after each pass
-    pass_dist: List[float]         # distortion (SSE) remaining after pass
-    dist0: float                   # distortion with nothing decoded
-    shape: Tuple[int, int]
-    band: str
-
-    @property
-    def num_passes(self) -> int:
-        return len(self.pass_ends)
 
 
 def _build() -> str:
@@ -88,6 +75,15 @@ def build_seconds() -> float:
     return time.time() - t0
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        _load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def encode_codeblock(coeffs: np.ndarray, band: str) -> CodeblockStream:
     lib = _load()
     coeffs = np.ascontiguousarray(coeffs, dtype=np.int64)
@@ -111,6 +107,24 @@ def encode_codeblock(coeffs: np.ndarray, band: str) -> CodeblockStream:
     return CodeblockStream(bytes(out[:total]), msbs.value,
                            ends[:n].tolist(), dist[:n].tolist(),
                            dist0.value, (h, w), band)
+
+
+def decode_codeblock(data: bytes, msbs: int, num_passes: int,
+                     shape: Tuple[int, int], band: str,
+                     pass_ends: Optional[List[int]] = None) -> np.ndarray:
+    """Decode (possibly truncated) code-block data: the native twin of
+    :func:`.tier1.decode_codeblock`."""
+    lib = _load()
+    h, w = shape
+    out = np.zeros(h * w, np.int64)
+    ends = np.asarray(pass_ends or [len(data)], np.int32)
+    buf = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+    lib.qsvc_decode_block(
+        buf.ctypes.data_as(ctypes.c_void_p), len(data), msbs, num_passes,
+        ends.ctypes.data_as(ctypes.c_void_p), len(ends),
+        h, w, _BAND_CODE[band],
+        out.ctypes.data_as(ctypes.c_void_p))
+    return out.reshape(h, w)
 
 
 def encode_codeblocks_batch(tiles: Sequence[np.ndarray],

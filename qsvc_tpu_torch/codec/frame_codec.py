@@ -231,6 +231,13 @@ def _tile_dims(H: int, W: int, levels: int, cb: int
         _DIMS_CACHE[key] = dims
     return dims
 
+
+def _to_int16(q: torch.Tensor):
+    """(q as int16, a 0-dim bool set when some value does not fit)."""
+    q16 = q.to(torch.int16)
+    return q16, (q16.to(torch.int32) != q).any()
+
+
 def _dwt_quant_tiles(plane: torch.Tensor, levels: int, reversible: bool,
                      delta: torch.Tensor, cb: int):
     """Forward DWT + quantize + code-block tiling.
@@ -239,9 +246,7 @@ def _dwt_quant_tiles(plane: torch.Tensor, levels: int, reversible: bool,
     in band-layout/template order (edge tiles zero-padded), ``maxabs`` the
     per-tile max magnitude, ``overflow`` a 0-dim bool that is set when a
     coefficient does not fit int16."""
-    q = _dwt_quant(plane, levels, reversible, delta)
-    q16 = q.to(torch.int16)
-    overflow = (q16.to(torch.int32) != q).any()
+    q16, overflow = _to_int16(_dwt_quant(plane, levels, reversible, delta))
     N, H, W = q16.shape
     parts = []
     for b in subbands.band_layout(H, W, levels):
@@ -382,6 +387,27 @@ def encode_frames_finish_sparse(selected, H: int, W: int,
             per_frame[n].append(empties[ti] if blk is None else blk)
     return [EncodedFrame(H, W, levels, reversible, delta, cb, blocks, coder)
             for blocks in per_frame]
+
+
+def encode_frames_dispatch(planes, levels: int, reversible: bool,
+                           delta: float, *, device):
+    """Stage 1 of the dense encode: the DWT + quantization of a stack of
+    planes (N, H, W), a numpy array or a tensor, queued on ``device``
+    without waiting for it.  Returns an opaque pending handle for
+    :func:`encode_frames_fetch`."""
+    if not isinstance(planes, torch.Tensor):
+        planes = torch.from_numpy(np.ascontiguousarray(planes))
+    d = torch.tensor(delta, dtype=torch.float32, device=device)
+    q = _dwt_quant(planes.to(device), levels, reversible, d)
+    return (q,) + _to_int16(q)
+
+
+def encode_frames_fetch(pending) -> np.ndarray:
+    """Stage 2: the quantized planes on the host, as int16, or as int32
+    when a quantized index does not fit int16."""
+    q, q16, overflow = pending
+    return (q if bool(overflow) else q16).cpu().numpy()
+
 
 def encode_frames_host(packed_all: np.ndarray, levels: int, reversible: bool,
                        delta: float, codeblock_size: int,

@@ -136,6 +136,19 @@ def _refine_level_batch(preds: torch.Tensor, prevs: torch.Tensor,
                           max_mv)
 
 
+def estimate_pair(pred: torch.Tensor, ref_prev: torch.Tensor,
+                  ref_next: torch.Tensor, block_size: int,
+                  search_range: int, border_size: int = 0,
+                  subpixel_accuracy: int = 0) -> torch.Tensor:
+    """Motion field for one (even, odd, even) triple of (H, W) int16
+    lumas: :func:`estimate_sequence` at one pair (kernel K1 for CUDA
+    tensors).  Returns (2, 2, By, Bx) int32, [PREV|NEXT][y|x][by][bx],
+    such that ``ref[y + mv_y, x + mv_x]`` predicts ``pred[y, x]``."""
+    return estimate_sequence(torch.stack([ref_prev, ref_next]), pred[None],
+                             block_size, search_range, border_size,
+                             subpixel_accuracy)[0]
+
+
 def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,
                       block_size: int, search_range: int,
                       border_size: int = 0, subpixel_accuracy: int = 0

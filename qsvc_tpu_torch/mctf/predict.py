@@ -33,6 +33,13 @@ from ..ops.entropy import histogram_entropy
 from ..ops.lifting import tdiv
 
 
+class FramePlanes(NamedTuple):
+    """One frame stack: luma (N, H, W), chroma u/v (N, H/2, W/2)."""
+    y: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+
+
 def upsample_chroma(c: torch.Tensor) -> torch.Tensor:
     """Chroma to luma resolution (zero-high 5/3 synthesis,
     decorrelate.cpp:610-648)."""
@@ -48,6 +55,14 @@ def downsample_chroma(c: torch.Tensor) -> torch.Tensor:
 #: window elements one OLA chunk gathers per reference, at most (a chunk
 #: is whole block rows of one pair)
 OLA_CHUNK = 1 << 27
+
+
+def mv_to_pixel_map(mv: torch.Tensor, block_size: int, H: int, W: int
+                    ) -> torch.Tensor:
+    """Expand a block motion field (..., By, Bx) to per-pixel (..., H, W)."""
+    m = mv.repeat_interleave(block_size, dim=-2).repeat_interleave(
+        block_size, dim=-1)
+    return m[..., :H, :W]
 
 
 def _patch_index(origin: torch.Tensor, n: int, border: int, win: int,
@@ -115,7 +130,14 @@ def predict_frames_batch(refs_prev: torch.Tensor, refs_next: torch.Tensor,
     if block_overlaping > 0:
         return _predict_frames_ola(refs_prev, refs_next, mv, block_size,
                                    search_range, block_overlaping)
-    border = 4 * search_range
+    return _predict(refs_prev, refs_next, mv, block_size, 4 * search_range)
+
+
+def _predict(refs_prev: torch.Tensor, refs_next: torch.Tensor,
+             mv: torch.Tensor, block_size: int, border: int
+             ) -> torch.Tensor:
+    """Block prediction of a batch of pairs edge-padded by ``border``:
+    kernel K2 for CUDA tensors, :func:`predict_frame` for CPU tensors."""
     if not mv.is_cuda:
         return predict_frame(refs_prev, refs_next, mv, block_size, border)
     return cuda_mc.predict(refs_prev.contiguous(), refs_next.contiguous(),
@@ -255,6 +277,41 @@ def decorrelate_from_pred(odd: Tuple[torch.Tensor, torch.Tensor,
     mv_out = torch.where(is_B[:, None, None, None, None], mv,
                          torch.zeros_like(mv))
     return PredictResult(high_y, high_u, high_v, mv_out, is_B)
+
+
+def decorrelate_pair(odd: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                     ref_prev_444: torch.Tensor, ref_next_444: torch.Tensor,
+                     mv: torch.Tensor, block_size: int, search_range: int,
+                     block_overlaping: int = 0, always_B: bool = False
+                     ) -> PredictResult:
+    """Forward predict step for one odd frame (decorrelate.cpp ANALYZE
+    path): (H, W) luma and (H/2, W/2) chroma int16 planes, (3, H, W)
+    4:4:4 references, (2, 2, By, Bx) int32 vectors.  The prediction reads
+    the references edge-padded by ``4*search_range + block_overlaping``
+    (kernel K2 for CUDA tensors, :func:`predict_frame` for CPU tensors).
+    Returns the :class:`PredictResult` of the one frame (``is_B`` a
+    0-dimensional bool tensor)."""
+    pred = _predict(ref_prev_444[None], ref_next_444[None], mv[None],
+                    block_size, 4 * search_range + block_overlaping)
+    res = decorrelate_from_pred(tuple(p[None] for p in odd), pred, mv[None],
+                                always_B)
+    return PredictResult(*(t[0] for t in res))
+
+
+def correlate_pair(high: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                   ref_prev_444: torch.Tensor, ref_next_444: torch.Tensor,
+                   mv: torch.Tensor, is_B: torch.Tensor, block_size: int,
+                   search_range: int, block_overlaping: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Inverse predict step: reconstruct one odd frame
+    (decorrelate.cpp:1036-1061 SYNTHESIZE path) from its high planes,
+    the same prediction as :func:`decorrelate_pair` and its ``is_B``."""
+    pred = _predict(ref_prev_444[None], ref_next_444[None], mv[None],
+                    block_size, 4 * search_range + block_overlaping)
+    out = correlate_from_pred(tuple(p[None] for p in high), pred,
+                              torch.as_tensor(is_B, device=mv.device)
+                              .reshape(1))
+    return tuple(p[0] for p in out)
 
 
 def correlate_from_pred(high: Tuple[torch.Tensor, torch.Tensor,

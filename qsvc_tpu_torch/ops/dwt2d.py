@@ -4,7 +4,9 @@ Port of ``qsvc_tpu/ops/dwt2d.py`` (``trunk/src/dwt2d.cpp:76-175``
 semantics): at each level the active top-left sub-array is transformed
 rows-then-columns, low half first, high half after; after L levels the
 top-left corner holds the LL band.  Leading axes are batch axes.  The
-active size shrinks per level as ``n -> (n >> 1 or 1)``.
+active size shrinks per level as ``n -> (n >> 1 or 1)``.  Every bank of
+``lifting.FILTERS`` applies: the 5/3 and 9/7 passes run along their axis
+in place, the others with the axis moved last.
 """
 
 from __future__ import annotations
@@ -26,16 +28,28 @@ def _level_sizes(n: int, levels: int) -> List[int]:
 
 
 def _fwd_axis(x: torch.Tensor, filt: str, axis: int) -> torch.Tensor:
-    """One packed forward 1D transform along ``axis`` (low | high)."""
-    l, h = lifting.fwd(filt, x, axis=axis)
-    return torch.cat([l, h], dim=axis)
+    """One packed forward 1D transform along ``axis`` (low | high).  The
+    5/3 and 9/7 banks run along either of the last two axes in place;
+    the others run on the last axis, so the column pass moves the axis
+    there and back."""
+    if filt in lifting.AXIS_AWARE:
+        l, h = lifting.fwd(filt, x, axis=axis)
+        return torch.cat([l, h], dim=axis)
+    l, h = lifting.fwd(filt, x.movedim(axis, -1))
+    return torch.cat([l, h], dim=-1).movedim(-1, axis)
 
 
 def _inv_axis(x: torch.Tensor, filt: str, axis: int, n_low: int
               ) -> torch.Tensor:
-    if axis == -1:
-        return lifting.inv(filt, x[..., :n_low], x[..., n_low:], axis=axis)
-    return lifting.inv(filt, x[..., :n_low, :], x[..., n_low:, :], axis=axis)
+    if filt in lifting.AXIS_AWARE:
+        if axis == -1:
+            return lifting.inv(filt, x[..., :n_low], x[..., n_low:],
+                               axis=axis)
+        return lifting.inv(filt, x[..., :n_low, :], x[..., n_low:, :],
+                           axis=axis)
+    xm = x.movedim(axis, -1)
+    return lifting.inv(filt, xm[..., :n_low], xm[..., n_low:]).movedim(
+        -1, axis)
 
 
 def analyze(x: torch.Tensor, levels: int, filt: str = "5/3") -> torch.Tensor:
@@ -134,3 +148,10 @@ def downsample2(x: torch.Tensor, filt: str = "5/3") -> torch.Tensor:
         return _low_axis(_low_axis(x, -1), -2)
     packed = analyze(x, 1, filt)
     return packed[..., :H - H // 2, :W - W // 2]
+
+
+def ll_view(x: torch.Tensor, levels: int) -> torch.Tensor:
+    """The LL band of a packed ``levels``-deep pyramid (top-left corner)."""
+    ys = _level_sizes(x.shape[-2], levels)
+    xs = _level_sizes(x.shape[-1], levels)
+    return x[..., :ys[-1], :xs[-1]]

@@ -18,19 +18,24 @@ ranks, or for ranks that share one card):
   sequence;
 * :func:`encode_gops_distributed` is the closed-GOP encode: each rank
   encodes its own GOPs as independent streams and every rank gets the
-  ordered list — byte-identical to ``api.compress_gops``.
-
-The scaling harness of the JAX module (``measure_scaling``) is not
-ported yet.
+  ordered list — byte-identical to ``api.compress_gops``;
+* :func:`measure_scaling` is the scaling harness: the sharded encode
+  step's fps on one rank against ``n``, each point a process group of
+  its own spawned worker processes (``python -m
+  qsvc_tpu_torch.parallel.scaling`` writes a sweep to a file).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+import pickle
+import tempfile
+import time
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from ..config import CodecConfig
 from ..io.yuv import Video
@@ -190,3 +195,142 @@ def compress_distributed(video: Video, cfg: CodecConfig,
         levels_out.append(LevelSection(high, motion, ftypes))
     return VideoStream(cfg, reversible, delta, low, levels_out,
                        true_dims=true_dims, true_frames=true_frames)
+
+
+#: the scaling harness's default configuration (the JAX package's):
+#: large enough that per-call overheads do not swamp the encode
+SCALING_CONFIG = CodecConfig(pixels_in_x=512, pixels_in_y=512, TRLs=3,
+                             block_size=32, search_range=4,
+                             update_factor=0.25, SRLs=4)
+#: timed calls of the encode step per scaling point, after one warm-up
+SCALING_REPS = 2
+#: seconds a group of spawned ranks may take, start-up included
+RANKS_TIMEOUT_S = 900
+
+
+def _check_cards(n: int, device: torch.device) -> None:
+    """Raise unless each of ``n`` CUDA ranks can have a card of its own."""
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise ValueError(f"{n} ranks need {n} cards (one rank per card); "
+                         f"{torch.cuda.device_count()} are visible")
+
+
+def _rank_main(rank: int, target, n: int, store: str, outdir: str,
+               args: tuple) -> None:
+    """A spawned rank of :func:`run_ranks`: ``target``'s result to a
+    file of ``outdir``."""
+    out = target(rank, n, store, *args)
+    with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(target, n: int, *args, timeout: float = RANKS_TIMEOUT_S
+              ) -> List:
+    """Run ``target(rank, n, store, *args)`` in ``n`` processes of
+    ``torch.multiprocessing.spawn``, ``store`` a ``file://`` rendezvous
+    path in a temp dir (for :func:`initialize` or
+    ``init_process_group``); returns the ranks' results in rank order.
+    When a rank fails, or ``timeout`` seconds pass, every rank still
+    running is stopped, and this raises."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = mp.spawn(_rank_main, args=(target, n,
+                                           os.path.join(tmp, "store"), tmp,
+                                           args), nprocs=n, join=False)
+        deadline = time.monotonic() + timeout
+        try:
+            # join stops the peers of a failed rank, which would wait on it
+            while not ranks.join(max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"ranks failed: still running after "
+                                       f"{timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise RuntimeError(f"ranks failed: {e}") from e
+        finally:
+            for p in ranks.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def _scaling_rank(rank: int, n: int, store: str, reps: int,
+                  cfg: CodecConfig, device: str) -> Dict:
+    """One rank of a scaling point: joins the group, runs
+    ``encode_step_sharded`` on its chunk once to warm up and ``reps``
+    times timed; returns its seconds per call and its kernel launches."""
+    from ..io import synthetic_video
+    from ..ops import cuda_lib
+    dev = torch.device("cuda", rank) if device == "cuda" else torch.device(
+        device)
+    initialize(dev, init_method=f"file://{store}", world_size=n, rank=rank)
+    try:
+        mesh = make_gop_mesh(dev)
+        vid = synthetic_video(cfg.pictures, cfg.pixels_in_y,
+                              cfg.pixels_in_x, seed=0)
+        planes = shard_video_gops(vid, cfg, mesh)
+
+        def step():
+            ptransform.encode_step_sharded(*planes, cfg, mesh)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        cuda_lib.reset_launches()
+        step()                                   # warm-up
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        dt = (time.perf_counter() - t0) / reps
+        dist.barrier(group=mesh.group)   # no rank leaves while a peer sends
+        return {"seconds": dt, "launches": dict(cuda_lib.launches)}
+    finally:
+        dist.destroy_process_group()
+
+
+def scaling_point(n: int, reps: int = SCALING_REPS,
+                  cfg: Optional[CodecConfig] = None, *, device) -> Dict:
+    """One point of :func:`measure_scaling`: ``encode_step_sharded`` of
+    ``n`` GOPs of ``cfg`` on ``n`` ranks (:func:`run_ranks`; ``nccl``
+    with rank r on ``cuda:r`` for a CUDA ``device``, ``gloo`` for the
+    CPU).  Returns ``{n, fps, seconds, launches}``: the frames of the
+    ``n``-GOP sequence over the slowest rank's seconds per call, and the
+    kernel launches of all ranks over the warm-up and the timed calls."""
+    device = torch.device(device)
+    _check_cards(n, device)
+    c = (cfg or SCALING_CONFIG).replace(GOPs=n)
+    ranks = run_ranks(_scaling_rank, n, reps, c, device.type)
+    seconds = max(r["seconds"] for r in ranks)
+    launches: Dict[str, int] = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"n": n, "fps": c.pictures / seconds, "seconds": seconds,
+            "launches": launches}
+
+
+def efficiency(point: Dict, one: Dict) -> float:
+    """fps_n / (n * fps_1) of a :func:`scaling_point` against the n = 1
+    point."""
+    return point["fps"] / (point["n"] * one["fps"])
+
+
+def measure_scaling(n_ranks: int, reps: int = SCALING_REPS,
+                    cfg: Optional[CodecConfig] = None, *, device) -> Dict:
+    """Scaling efficiency of the sharded encode step: fps on one rank
+    against ``n_ranks`` ranks with the same work per rank (one GOP of
+    ``cfg``, by default :data:`SCALING_CONFIG`), each point a
+    :func:`scaling_point`.  Returns ``{n_devices, fps_1, fps_n,
+    efficiency, launches}`` with efficiency = fps_n / (n * fps_1) and the
+    launches of each point by its ``n``; at ``n_ranks`` = 1 the one point
+    is both.  With a CUDA ``device`` every rank has its own card: more
+    ranks than cards raise."""
+    _check_cards(n_ranks, torch.device(device))
+    one = scaling_point(1, reps, cfg, device=device)
+    many = (one if n_ranks == 1
+            else scaling_point(n_ranks, reps, cfg, device=device))
+    return {"n_devices": n_ranks, "fps_1": one["fps"], "fps_n": many["fps"],
+            "efficiency": efficiency(many, one),
+            "launches": {1: one["launches"], n_ranks: many["launches"]}}

@@ -51,23 +51,25 @@ def _shift(x: torch.Tensor, mesh: GopMesh, step: int
     """Send ``x`` to rank+step and receive rank-step's ``x``: one
     ``batch_isend_irecv`` with the send and the receive this rank has
     (none across the ends of the chunk run).  Returns the received frame,
-    or None on the rank with no such neighbour."""
+    or None on the rank with no such neighbour.  The frame travels as its
+    bytes: nccl takes no int16 tensor."""
     dst, src = mesh.rank + step, mesh.rank - step
     if mesh.size == 1:
         return None
     host = torch.device("cpu") if mesh.host_staged else x.device
+    payload = x.to(host).contiguous().view(torch.uint8)
     ops = []
     if 0 <= dst < mesh.size:
-        ops.append(dist.P2POp(dist.isend, x.to(host).contiguous(),
-                              group=mesh.group, group_peer=dst))
+        ops.append(dist.P2POp(dist.isend, payload, group=mesh.group,
+                              group_peer=dst))
     got = None
     if 0 <= src < mesh.size:
-        got = torch.empty(x.shape, dtype=x.dtype, device=host)
+        got = torch.empty_like(payload)
         ops.append(dist.P2POp(dist.irecv, got, group=mesh.group,
                               group_peer=src))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return None if got is None else got.to(x.device)
+    return None if got is None else got.view(x.dtype).to(x.device)
 
 
 def _right_shift(x, mesh):

@@ -142,7 +142,11 @@ def test_port_does_not_import_jax():
             "qsvc_tpu_torch.scal.extract, qsvc_tpu_torch.scal.info, "
             "qsvc_tpu_torch.scal.rd, qsvc_tpu_torch.scal.anchor, "
             "qsvc_tpu_torch.codec.backends, qsvc_tpu_torch.codec.j2k, "
-            "qsvc_tpu_torch.utils.artifacts;"
+            "qsvc_tpu_torch.utils.artifacts, qsvc_tpu_torch.ops.border, "
+            "qsvc_tpu_torch.ops.lifting, qsvc_tpu_torch.mctf.me, "
+            "qsvc_tpu_torch.mctf.predict, qsvc_tpu_torch.codec.mq, "
+            "qsvc_tpu_torch.codec.tier1, qsvc_tpu_torch.codec.fast, "
+            "qsvc_tpu_torch.parallel.scaling;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'qsvc_tpu.')) or m == 'qsvc_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")

@@ -177,3 +177,45 @@ def test_int16_overflow_takes_the_packed_path():
     want = np.asarray(jfc.decode_frames(jefs))
     assert np.abs(got - want).max() <= 1
     assert np.abs(got - planes).max() <= 1
+
+
+@pytest.mark.parametrize("reversible,delta", [(True, 1.0), (False, 0.5)])
+def test_dense_dispatch_fetch_matches_jax(reversible, delta):
+    """The dense two-stage encode: int16 planes on the host.  The 5/3
+    path is exact; a 9/7 index may flip at a quantizer boundary (float32
+    rounding), at most 0.01 % of them."""
+    planes = np.random.default_rng(5).integers(0, 256, (3, 36, 44)
+                                               ).astype(np.uint8)
+    got = frame_codec.encode_frames_fetch(frame_codec.encode_frames_dispatch(
+        planes, 3, reversible, delta, device="cpu"))
+    want = jfc.encode_frames_fetch(jfc.encode_frames_dispatch(
+        planes, 3, reversible, delta))
+    assert got.dtype == want.dtype == np.int16
+    if reversible:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.abs(got.astype(np.int32) - want).max() <= 1
+        assert (got != want).mean() <= 1e-4
+
+
+def test_dense_fetch_takes_int32_on_overflow():
+    """An index past int16 returns the whole stack as int32, exact on
+    the 5/3 path (planes of 40000 overflow int16 after the level shift);
+    a tensor input on the device is used in place."""
+    planes = np.random.default_rng(6).integers(0, 256, (2, 32, 40)
+                                               ).astype(np.int32)
+    planes[0, :8, :8] = 40000
+    pending = frame_codec.encode_frames_dispatch(
+        torch.from_numpy(planes), 2, True, 1.0, device="cpu")
+    got = frame_codec.encode_frames_fetch(pending)
+    want = jfc.encode_frames_fetch(jfc.encode_frames_dispatch(
+        planes, 2, True, 1.0))
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got).max() > 32767
+
+
+def test_dense_dispatch_needs_a_device():
+    with pytest.raises(TypeError):
+        frame_codec.encode_frames_dispatch(np.zeros((1, 8, 8), np.uint8), 1,
+                                           True, 1.0)

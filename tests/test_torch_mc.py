@@ -212,3 +212,62 @@ def test_predict_frames_subpixel_matches_jax(rng, a, d):
         16, sr, a, d)
     got = predict.predict_frames_subpixel(*_t(evens, mv), 16, sr, a, d)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _pair(rng, kind):
+    """An (odd frame, 4:4:4 PREV/NEXT references, vectors) case of one
+    pair at 48x64, blocks of 16: "near" predicts the odd frame closely
+    (a B frame), "far" does not (an I frame candidate)."""
+    from qsvc_tpu.io import synthetic_video
+    vid = synthetic_video(3, 48, 64, seed=4, kind="translate")
+    y, u, v = (p.astype(np.int16) for p in vid.planes())
+    if kind == "far":
+        y[1] = rng.integers(0, 256, y[1].shape)
+    refs = [np.stack([y[i]] + [np.asarray(jpredict.upsample_chroma(
+        jnp.asarray(c[i]))) for c in (u, v)]).astype(np.int16)
+        for i in (0, 2)]
+    mv = rng.integers(-3, 4, (2, 2, 3, 4)).astype(np.int32)
+    return (y[1], u[1], v[1]), refs[0], refs[1], mv
+
+
+@pytest.mark.parametrize("kind", ["near", "far"])
+@pytest.mark.parametrize("d,always_B", [(0, False), (4, False), (0, True)])
+def test_decorrelate_correlate_pair_match_jax(rng, kind, d, always_B):
+    """The one-pair steps read the references edge-padded by
+    4*search_range + block_overlaping (the plain version of K2), then
+    form residues and the I/B decision; the inverse gives back what the
+    JAX inverse does."""
+    odd, rp, rn, mv = _pair(rng, kind)
+    want = jpredict.decorrelate_pair(
+        tuple(jnp.asarray(p) for p in odd), jnp.asarray(rp),
+        jnp.asarray(rn), jnp.asarray(mv), 16, 1, d, always_B)
+    got = predict.decorrelate_pair(_t(*odd), *_t(rp, rn, mv), 16, 1, d,
+                                   always_B)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    assert got.is_B.shape == ()
+    back = predict.correlate_pair(got[:3], *_t(rp, rn), got.mv_out,
+                                  got.is_B, 16, 1, d)
+    want_back = jpredict.correlate_pair(tuple(want[:3]), jnp.asarray(rp),
+                                        jnp.asarray(rn), want.mv_out,
+                                        want.is_B, 16, 1, d)
+    for g, w_ in zip(back, want_back):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    if kind == "near":
+        for g, o in zip(back, odd):
+            np.testing.assert_array_equal(g.numpy(), o)
+
+
+@pytest.mark.parametrize("shape,bs,H_,W_", [((2, 2, 3, 4), 16, 48, 64),
+                                            ((3, 5), 8, 37, 40),
+                                            ((1, 1), 4, 4, 4)])
+def test_mv_to_pixel_map_matches_jax(rng, shape, bs, H_, W_):
+    mv = rng.integers(-9, 10, shape).astype(np.int32)
+    got = predict.mv_to_pixel_map(torch.from_numpy(mv), bs, H_, W_)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jpredict.mv_to_pixel_map(jnp.asarray(mv),
+                                                         bs, H_, W_)))
+
+
+def test_frame_planes_fields():
+    assert predict.FramePlanes._fields == jpredict.FramePlanes._fields

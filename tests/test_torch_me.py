@@ -204,3 +204,18 @@ def test_estimate_sequence_subpixel_matches_jax(H_, W_, bs, sr, a, border):
     got = me.estimate_sequence(torch.from_numpy(y[0::2]),
                                torch.from_numpy(y[1::2]), bs, sr, border, a)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("H_,W_,bs,sr,a,kind", [
+    (64, 96, 16, 4, 0, "moving"), (96, 128, 32, 16, 0, "translate"),
+    (48, 64, 16, 4, 1, "translate"), (32, 64, 16, 2, 2, "random")])
+def test_estimate_pair_matches_jax(H_, W_, bs, sr, a, kind):
+    """One (even, odd, even) triple, whole-pixel and sub-pixel."""
+    from qsvc_tpu.io import synthetic_video
+    y = synthetic_video(3, H_, W_, seed=sr + a, kind=kind).y.astype(np.int16)
+    want = jme.estimate_pair(*(jnp.asarray(y[i]) for i in (1, 0, 2)), bs,
+                             sr, 0, a)
+    got = me.estimate_pair(*(torch.from_numpy(y[i]) for i in (1, 0, 2)), bs,
+                           sr, 0, a)
+    assert got.shape == (2, 2, H_ // bs, W_ // bs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

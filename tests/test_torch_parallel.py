@@ -10,10 +10,12 @@ catches a wrong neighbour index in the halo exchange (with 2 ranks the
 left and right neighbours coincide)."""
 
 import functools
+import json
 import os
 import pickle
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -355,3 +357,64 @@ def test_multirank_encode_gops_matches_jax(spawn, world, case):
     ref = _jax_ref(*SPAWN_CASES[world, case])["gops"]
     for r, res in enumerate(spawn(world)):
         assert res[case]["gops"] == ref, f"rank {r}"
+
+
+# ------------------------------------------------- (g) the scaling harness
+
+SCALING_KW = dict(pixels_in_x=32, pixels_in_y=32, TRLs=2, block_size=16,
+                  search_range=2, update_factor=0.25, SRLs=2)
+
+
+def test_measure_scaling_two_gloo_ranks(monkeypatch):
+    """Both points run (one rank, then a gloo group of two spawned
+    processes); no efficiency floor: under parallel test workers the
+    host's cores are shared and the timing is noise."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cfg = CodecConfig(**SCALING_KW)
+    res = pdist.measure_scaling(2, reps=1, cfg=cfg, device="cpu")
+    assert set(res) == {"n_devices", "fps_1", "fps_n", "efficiency",
+                        "launches"}
+    assert res["n_devices"] == 2
+    assert res["fps_1"] > 0 and res["fps_n"] > 0
+    assert res["efficiency"] == pytest.approx(
+        res["fps_n"] / (2 * res["fps_1"]))
+    # CPU ranks run the plain versions: no kernel launches
+    assert res["launches"] == {1: {}, 2: {}}
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_measure_scaling_never_shares_a_card(n):
+    """More CUDA ranks than cards raise before any process starts (here
+    there is no card at all): no rank shares a card, none falls back to
+    gloo."""
+    if torch.cuda.device_count() >= n:
+        pytest.skip("needs fewer cards than ranks")
+    with pytest.raises(ValueError, match="one rank per card"):
+        pdist.measure_scaling(n, cfg=CodecConfig(**SCALING_KW),
+                              device="cuda")
+
+
+def test_scaling_command_writes_the_sweep(monkeypatch, tmp_path):
+    from qsvc_tpu_torch.parallel import scaling
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(pdist, "SCALING_CONFIG", CodecConfig(**SCALING_KW))
+    out = tmp_path / "scaling.json"
+    assert scaling.main(["--ns", "2", "--reps", "1", "--device", "cpu",
+                         "--out", str(out)]) == 0
+    res = json.loads(out.read_text())
+    assert [p["n"] for p in res["points"]] == [1, 2]
+    assert res["points"][0]["efficiency"] == 1.0
+    assert res["config"]["pixels_in_x"] == 32 and res["cards"] is None
+
+
+def _fail_on_rank_1(rank, n, store):
+    if rank == 1:
+        raise RuntimeError("rank 1 fails")
+    time.sleep(600)                 # a peer that would wait for rank 1
+
+
+def test_run_ranks_stops_the_peers_of_a_failed_rank():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="ranks failed"):
+        pdist.run_ranks(_fail_on_rank_1, 2, timeout=120)
+    assert time.monotonic() - t0 < 60
