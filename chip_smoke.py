@@ -35,13 +35,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    32, 16, 8 and 4 on frames of 1088x1920 >> d), timed beside their
    bounds;
 3. correctness on the card: the MCTF analysis and synthesis of a small
-   sequence on the card equal the plain CPU run, whole-pixel, at
-   sub-pixel accuracies 1-3, with OLA (alone and with a = 1) and with a
-   border of 2, and a 1080p lossless 5/3 MCTF stream round-trips
-   bit-exactly through its container bytes;
+   sequence on the card, eager and as the captured programs
+   ``analyze_jit``/``synthesize_jit``, equal the plain CPU run,
+   whole-pixel, at sub-pixel accuracies 1-3, with OLA (alone and with
+   a = 1) and with a border of 2, and a 1080p lossless 5/3 MCTF stream
+   round-trips bit-exactly through its container bytes;
 4. the flagship: 1920x1088, GOP 16 (TRLs=5), 9/7 at slope 45000, 4 GOPs
    staged on the card, encoded (warm-up + timed) and decoded to
-   device-resident uint8, with the kernel launch counts of that run;
+   device-resident uint8 through the API (so through its captured
+   programs), with the kernel launch counts of that run and of the timed
+   encode and decode, and the peak device memory;
 5a. the sharded flagship on one rank (``qsvc_tpu_torch.parallel``): the
    phase 4 configuration as one 65-frame sequence, ``compress_distributed``
    byte-identical to ``api.compress`` and ``encode_gops_distributed`` to
@@ -79,16 +82,28 @@ Phases, one line each; any failure exits non-zero before the last line:
    in a spawned rank) at the JAX default configuration and at the
    flagship's, and over nccl across every card where there are several;
    (e) the dense two-stage encode against ``_dwt_quant``, int16 and the
-   int32 overflow path.
+   int32 overflow path;
+9. the captured programs (``qsvc_tpu_torch/utils/graphs.py``) at the
+   flagship size: (a) ``analyze_jit``, the texture stage 1,
+   ``decorrelate_jit``, ``correlate_jit``, ``_dequant_idwt_jit`` and
+   ``synthesize_jit`` at ``discard_TRLs`` 0 and 1, each equal to its
+   eager function bit for bit on GOP 1 (first call: warm-up, capture,
+   replay) and on GOP 2 through GOP 1's graphs (stale inputs), GOP 1's
+   results unchanged after GOP 2's replays (aliasing), with each key's
+   capture seconds and the first calls' peak memory; (b) the launches of
+   one 4-GOP encode and decode through the graphs equal those of the
+   eager programs (and the bytes), ``expand_gops`` in its two threads
+   equals the serial ``expand``, and the decode's device busy share and
+   host launches under ``torch.profiler``, replayed and eager in turns.
 
-The whole run takes 75-85 s on an H100 before phase 7 (phase 2's wide K1
-calls and their plain versions are the largest part of what phases 2, 3
-and 6 added).
+The whole run takes 190-280 s on an H100 (phase 9 about 36 s).
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main paths: phase 4 for K1-K3, phase
-5a for K4, plus phase 8's K1, K2 and K4 paths; times and bound at the
-first shape phase 2 names for it);
+5a for K4, plus phase 8's K1, K2 and K4 paths; a graph replay counts the
+launches its capture recorded, and the eager warm-up before a capture
+counts as the run it is; times and bound at the first shape phase 2
+names for it);
 the last line is ``{"ok": true, "device": {...}}`` with the number of
 cards the run used.  Without a CUDA device the script exits 1 and
 prints no result.
@@ -103,6 +118,7 @@ K1-K4, so ``library_ms`` is null.
 """
 
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -646,15 +662,13 @@ def phase_correctness(dev):
     vid = synthetic_video(base.pictures, 128, 256, seed=1, kind="translate")
     planes = [torch.from_numpy(p) for p in vid.planes()]
 
-    def flat(st):
-        return [st.low_y, st.low_u, st.low_v] + [a for lev in st.levels
-                                                 for a in lev]
     for name, kw in MCTF_CASES.items():
         cfg = base.replace(**kw)
         on_card = transform.analyze(*(p.to(dev) for p in planes), cfg)
         on_cpu = transform.analyze(*planes, cfg)
+        want = _flat_stream(on_cpu.to_numpy())
         if not all(np.array_equal(a, b) for a, b in
-                   zip(flat(on_card.to_numpy()), flat(on_cpu.to_numpy()))):
+                   zip(_flat_stream(on_card.to_numpy()), want)):
             raise SystemExit(f"phase 3: MCTF analysis ({name}) on the card "
                              f"differs from the CPU")
         rec_card = transform.synthesize(on_card, cfg)
@@ -662,6 +676,16 @@ def phase_correctness(dev):
         if not all(np.array_equal(a.cpu().numpy(), b.numpy())
                    for a, b in zip(rec_card, rec_cpu)):
             raise SystemExit(f"phase 3: MCTF synthesis ({name}) on the card "
+                             f"differs from the CPU")
+        # the captured programs (CUDA graphs) against the same CPU runs
+        jit = transform.analyze_jit(*(p.to(dev) for p in planes), cfg)
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(_flat_stream(jit.to_numpy()), want)):
+            raise SystemExit(f"phase 3: analyze_jit ({name}) on the card "
+                             f"differs from the CPU")
+        if not all(np.array_equal(a.cpu().numpy(), b.numpy()) for a, b in
+                   zip(transform.synthesize_jit(jit, cfg), rec_cpu)):
+            raise SystemExit(f"phase 3: synthesize_jit ({name}) on the card "
                              f"differs from the CPU")
 
     # 1080p lossless round trip through the container bytes
@@ -675,8 +699,9 @@ def phase_correctness(dev):
     for a, b, name in zip(rec.planes(), vid.planes(), "yuv"):
         if not np.array_equal(a, b):
             raise SystemExit(f"phase 3: lossless round trip differs ({name})")
-    print(f"phase 3 correctness: ok (MCTF analysis and synthesis card == "
-          f"CPU at 256x128: {', '.join(MCTF_CASES)}; 1080p "
+    print(f"phase 3 correctness: ok (MCTF analysis and synthesis, eager "
+          f"and as captured programs, card == CPU at 256x128: "
+          f"{', '.join(MCTF_CASES)}; 1080p "
           f"TRLs=3 lossless round trip bit-exact, {len(data)} bytes, "
           f"{dt:.3f} s)", flush=True)
 
@@ -689,9 +714,10 @@ def phase_flagship(dev):
 def _staged_run(dev, cfg, title, phase):
     """Encode (warm-up + timed) and decode (warm-up + timed) of
     ``cfg.GOPs`` GOPs of the flagship's video staged on the card, 9/7 at
-    its slope; prints fps, bpp, PSNR and the launches, fails if K1-K3
-    never launched or PSNR-Y < 25 dB; returns the launch counts of the
-    run (set to 0 just before it)."""
+    its slope; prints fps, bpp, PSNR, the launches (of the whole run, and
+    of the timed encode and decode) and the peak device memory, fails if
+    K1-K3 never launched or PSNR-Y < 25 dB; returns the launch counts of
+    the run (set to 0 just before it)."""
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.codec.codestream import VideoStream
     from qsvc_tpu_torch.io import Video, synthetic_video, video_psnr
@@ -705,28 +731,33 @@ def _staged_run(dev, cfg, title, phase):
                       for p in vid.planes())) for g in range(gops)]
     torch.cuda.synchronize()
 
+    def since(before):
+        return {k: n - before.get(k, 0) for k, n in cuda_lib.launches.items()
+                if n > before.get(k, 0)}
+    torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     t0 = time.time()
     api.compress_chunks(staged, gop_cfg, reversible=False, device=dev)
     warm_s = time.time() - t0
-    per_encode = dict(cuda_lib.launches)
     torch.cuda.synchronize()
+    before = dict(cuda_lib.launches)
     t0 = time.time()
     streams = api.compress_chunks(staged, gop_cfg, reversible=False,
                                   device=dev)
     enc_s = time.time() - t0
+    per_encode = since(before)
     blobs = [s.to_bytes() for s in streams]
     parsed = [VideoStream.from_bytes(b) for b in blobs]
-    encoded = dict(cuda_lib.launches)
     for s in parsed:                        # decode warm-up
         api.expand(s, to_host=False, device=dev)
-    per_decode = {k: n - encoded.get(k, 0)
-                  for k, n in cuda_lib.launches.items()
-                  if n > encoded.get(k, 0)}
+    before = dict(cuda_lib.launches)
     t0 = time.time()
     recs = [api.expand(s, to_host=False, device=dev) for s in parsed]
     dec_s = time.time() - t0
+    per_decode = since(before)
     counts = dict(cuda_lib.launches)
+    peak = (torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.max_memory_reserved() / 2**30)
 
     def join(plane):
         parts = [getattr(r, plane).cpu().numpy() for r in recs]
@@ -741,8 +772,10 @@ def _staged_run(dev, cfg, title, phase):
           f"{vid.frames / enc_s:.3f} fps ({enc_s:.3f} s, warm-up "
           f"{warm_s:.3f} s), decode {vid.frames / dec_s:.3f} fps "
           f"({dec_s:.3f} s), {bpp:.5f} bpp, PSNR-Y/U/V {py:.3f}/{pu:.3f}/"
-          f"{pv:.3f} dB, launches {counts} (per {gops}-GOP encode "
-          f"{per_encode}, per decode {per_decode})", flush=True)
+          f"{pv:.3f} dB, launches {counts} (per timed {gops}-GOP encode "
+          f"{per_encode}, per timed decode {per_decode}), peak device "
+          f"memory {peak[0]:.3f} GiB allocated, {peak[1]:.3f} GiB "
+          f"reserved", flush=True)
     if missing:
         raise SystemExit(f"{phase}: kernels never launched: {missing}")
     if not py >= 25.0:
@@ -1128,18 +1161,6 @@ def phase_surface(dev):
           f"{time.time() - t_start:.3f} s", flush=True)
 
 
-def _device_ops(fn):
-    """Device operations (kernels, copies, fills) of one call of ``fn``,
-    as ``torch.profiler`` records them on the card."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
 def _rest_filter_banks(dev, vid):
     """8a: the Haar, 13/7 and S+P banks at 4 levels over the flagship's
     17 lumas (int32, minus 128) on the card: exact round trips, the card
@@ -1164,7 +1185,7 @@ def _rest_filter_banks(dev, vid):
         ms = [_cuda_ms(f, reps=3, batch=1, warmup=1) for f in (
             lambda: dwt2d.analyze(x, 4, filt),
             lambda: dwt2d.synthesize(a, 4, filt))]
-        ops = [_device_ops(f) for f in (
+        ops = [profile_run(f)[3] for f in (
             lambda: dwt2d.analyze(x, 4, filt),
             lambda: dwt2d.synthesize(a, 4, filt))]
         rows.append(f"{filt} analyze {ms[0]:.3f} ms ({ops[0]} device ops), "
@@ -1382,6 +1403,235 @@ def phase_rest(dev):
     return counts
 
 
+@contextlib.contextmanager
+def _eager_programs():
+    """The port's API with its captured programs swapped for their eager
+    functions, for phase 9's comparisons and ``tools/graphs_ab.py``'s
+    parent-free baseline; restored on exit.  The port has no such switch
+    itself."""
+    from qsvc_tpu_torch.codec import frame_codec
+    from qsvc_tpu_torch.mctf import motion_coding, transform
+    swaps = [(transform, "analyze_jit", transform.analyze),
+             (transform, "synthesize_jit", transform.synthesize),
+             (motion_coding, "decorrelate_jit", motion_coding.decorrelate),
+             (motion_coding, "correlate_jit", motion_coding.correlate),
+             (frame_codec, "_encode_device_jit", frame_codec._encode_device),
+             (frame_codec, "_dequant_idwt_jit", frame_codec._dequant_idwt)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_run(fn):
+    """One call of ``fn`` under ``torch.profiler``, ended by a
+    synchronise: (wall s, device busy s as the union of the device's
+    kernel, copy and fill intervals, host launches as the CUDA runtime
+    launch calls (kernels and graphs), device operations)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.name.startswith("cu") and "Launch" in e.name)
+    return wall, busy * 1e-6, launches, len(spans)
+
+
+def _same(a, b):
+    a, b = list(a), list(b)
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _flat_stream(st):
+    return [st.low_y, st.low_u, st.low_v] + [a for lev in st.levels
+                                             for a in lev]
+
+
+def _gop_programs(planes, cfg, dev, jit):
+    """Every captured program on one flagship GOP as the API calls it
+    (``jit``) or its eager function: {name: list of result tensors}.
+    Stage 1 runs on the luma stack and ``_dequant_idwt`` on the quantized
+    level-1 lumas, as encode and decode give them."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec import frame_codec
+    from qsvc_tpu_torch.mctf import motion_coding, transform
+    pick = (lambda j, e: j) if jit else (lambda j, e: e)
+    out = {}
+    st = pick(transform.analyze_jit, transform.analyze)(*planes, cfg)
+    out["analyze"] = _flat_stream(st)
+    levels = cfg.SRLs - 1
+    delta = api._operating_point(cfg, False, None, None)[0]
+    d = torch.tensor(delta, dtype=torch.float32, device=dev)
+    luma = torch.cat([st.low_y] + [lev.high_y for lev in st.levels])
+    N, H, W = luma.shape
+    tpl = frame_codec._tile_template(H, W, levels, cfg.codeblock_size)
+    thr = np.full(N, frame_codec.slope_to_threshold(cfg.slopes()[0][0]))
+    ms = torch.as_tensor(frame_codec._slope_floor(
+        thr, N, len(tpl), tpl, False, delta, cfg.texture_coder), device=dev)
+    out["stage 1"] = list(pick(frame_codec._encode_device_jit,
+                               frame_codec._encode_device)(
+        luma, d, *frame_codec._tile_dims_on(H, W, levels,
+                                            cfg.codeblock_size, N, dev),
+        ms, levels, False, cfg.codeblock_size))
+    mvs = [lev.mv for lev in st.levels]
+    res = pick(motion_coding.decorrelate_jit, motion_coding.decorrelate)(mvs)
+    out["decorrelate"] = res
+    out["correlate"] = pick(motion_coding.correlate_jit,
+                            motion_coding.correlate)(res)
+    q = frame_codec._dwt_quant(st.levels[0].high_y, levels, False, d)
+    out["dequant_idwt"] = [pick(frame_codec._dequant_idwt_jit,
+                                frame_codec._dequant_idwt)(
+        q, levels, False, d)]
+    for k in (0, 1):
+        sub = st._replace(levels=st.levels[k:])
+        out[f"synthesize discard {k}"] = list(pick(
+            transform.synthesize_jit, transform.synthesize)(sub, cfg, k))
+    return out
+
+
+def phase_graphs(dev):
+    """9: the captured programs at the flagship size (1920x1088, TRLs 5,
+    9/7 at 45000): each equal to its eager run bit for bit on GOP 1 (the
+    first call: warm-up, capture, replay) and on GOP 2 through GOP 1's
+    graphs (stale inputs); GOP 1's results unchanged after GOP 2's
+    replays (aliasing); ``expand_gops`` over 4 GOPs in its two threads
+    == the serial ``expand``; the launches of one encode and decode of 4
+    GOPs through the graphs == those of the eager programs; capture
+    seconds and peak memory per key; the decode's device busy share and
+    host launches, eager and replayed."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec.codestream import VideoStream
+    from qsvc_tpu_torch.io import Video, synthetic_video
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.utils import graphs
+
+    t_start = time.time()
+    graphs.clear()              # and with the last graph, its pool:
+    torch.cuda.empty_cache()    # the peaks below are this phase's own
+    cfg = _flagship_cfg()
+    gop_cfg = cfg.replace(GOPs=1)
+    vid = synthetic_video(cfg.pictures, FLAGSHIP_H, FLAGSHIP_W, seed=0)
+    S = cfg.gop_size
+    staged = [Video(*(torch.from_numpy(p[g * S:(g + 1) * S + 1]).to(dev)
+                      for p in vid.planes())) for g in range(cfg.GOPs)]
+    # GOP 1: every program's first call, with its peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = _gop_programs(staged[0].planes(), gop_cfg, dev, jit=True)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2**30
+    kept = {k: [t.clone() for t in v] for k, v in first.items()}
+    want1 = _gop_programs(staged[0].planes(), gop_cfg, dev, jit=False)
+    bad = [k for k in first if not _same(first[k], want1[k])]
+    if bad:
+        raise SystemExit(f"phase 9: replay != eager on GOP 1: {bad}")
+    del want1
+    n_graphs = len(graphs.stats())
+    second = _gop_programs(staged[1].planes(), gop_cfg, dev, jit=True)
+    want2 = _gop_programs(staged[1].planes(), gop_cfg, dev, jit=False)
+    bad = [k for k in second if not _same(second[k], want2[k])]
+    if bad:
+        raise SystemExit(f"phase 9: GOP 2 through GOP 1's graphs != eager "
+                         f"(stale inputs): {bad}")
+    if len(graphs.stats()) != n_graphs:
+        raise SystemExit("phase 9: GOP 2 captured new graphs")
+    bad = [k for k in first if not _same(first[k], kept[k])]
+    if bad:
+        raise SystemExit(f"phase 9: GOP 1's results changed after GOP 2's "
+                         f"replays (aliasing): {bad}")
+    del first, second, want2, kept
+    keys = "; ".join(
+        f"{g['name']} {g['shapes'][0]} warm-up {g['warmup_s']:.3f} s, "
+        f"capture {g['capture_s']:.3f} s, launches {g['launches']}"
+        for g in graphs.stats())
+    print(f"  9a flagship GOP programs (analyze, stage 1, decorrelate, "
+          f"correlate, dequant_idwt, synthesize at discard 0 and 1): replay "
+          f"== eager bit for bit on GOP 1 (first call) and GOP 2 (GOP 1's "
+          f"graphs), GOP 1's results unchanged after GOP 2; {n_graphs} "
+          f"graphs, first calls' peak {peak:.3f} GiB allocated above the "
+          f"staged frames, {peak_reserved:.3f} GiB reserved in all; "
+          f"{keys}",
+          flush=True)
+
+    # launches of one encode and decode: through the graphs == eager
+    def encode_decode():
+        cuda_lib.reset_launches()
+        streams = api.compress_chunks(staged, gop_cfg, reversible=False,
+                                      device=dev)
+        enc = dict(cuda_lib.launches)
+        parsed = [VideoStream.from_bytes(s.to_bytes()) for s in streams]
+        cuda_lib.reset_launches()
+        for p in parsed:
+            api.expand(p, to_host=False, device=dev)
+        return parsed, enc, dict(cuda_lib.launches)
+    encode_decode()                        # captures what 9a did not
+    parsed, enc_g, dec_g = encode_decode()
+    with _eager_programs():
+        parsed_e, enc_e, dec_e = encode_decode()
+    if (enc_g, dec_g) != (enc_e, dec_e):
+        raise SystemExit(f"phase 9: launches through the graphs {enc_g} / "
+                         f"{dec_g} != eager {enc_e} / {dec_e}")
+    if [p.to_bytes() for p in parsed] != [p.to_bytes() for p in parsed_e]:
+        raise SystemExit("phase 9: the encode through the graphs differs "
+                         "from the eager programs' bytes")
+
+    # expand_gops' two threads == the serial expand
+    graphs.clear()               # its threads capture, too
+    par = api.expand_gops(parsed, device=dev)
+    ser = [api.expand(p, device=dev) for p in parsed]
+    for c in "yuv":
+        parts = [getattr(v, c) for v in ser]
+        want = np.concatenate([p[:-1] for p in parts] + [parts[-1][-1:]])
+        if not np.array_equal(getattr(par, c), want):
+            raise SystemExit(f"phase 9: expand_gops in two threads differs "
+                             f"from the serial expand ({c})")
+
+    def decode():
+        for p in parsed:
+            api.expand(p, to_host=False, device=dev)
+    decode()
+    rows = []
+    for name in ("replayed", "eager", "replayed ", "eager "):
+        if name.startswith("eager"):
+            with _eager_programs():
+                decode()
+                r = profile_run(decode)
+        else:
+            r = profile_run(decode)
+        rows.append(f"{name.strip()} wall {r[0]:.4f} s, device busy "
+                    f"{r[1]:.4f} s ({r[1] / r[0]:.1%}), host launches "
+                    f"{r[2]}, device ops {r[3]}")
+    print(f"  9b launches per 4-GOP encode {enc_g} and decode {dec_g}, "
+          f"through the graphs == eager, same bytes; expand_gops (2 "
+          f"threads) == serial expand; decode of 4 GOPs under "
+          f"torch.profiler: {'; '.join(rows)}", flush=True)
+    print(f"phase 9 captured programs: ok; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1400,6 +1650,7 @@ def main() -> int:
     for name, n in phase_rest(dev).items():
         if name in counts:
             counts[name] += n
+    phase_graphs(dev)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

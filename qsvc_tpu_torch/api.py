@@ -1,10 +1,15 @@
 """Top-level codec API: compress / expand on an explicit torch device.
 
 Port of ``qsvc_tpu/api.py`` (the compile-cache prewarm has no
-counterpart).  Every entry point takes a keyword-only ``device``: numpy frames with ``device="cuda"`` run the
-MCTF and texture transforms on the card through the kernels of
-``csrc/``, ``device="cpu"`` runs their plain PyTorch versions.  Frames
-already on the device (the staged mode) are used in place.  EBCOT
+counterpart).  Every entry point takes a keyword-only ``device``: numpy
+frames with ``device="cuda"`` run the MCTF and texture transforms on the
+card through the kernels of ``csrc/``, ``device="cpu"`` runs their plain
+PyTorch versions.  Where the JAX package runs a jitted program, the
+port runs its captured counterpart (``transform.analyze_jit`` /
+``synthesize_jit``, ``motion_coding.decorrelate_jit`` /
+``correlate_jit``, the texture stages of ``frame_codec``): a CUDA graph
+per shape on the card, the eager functions on the CPU.  Frames already
+on the device (the staged mode) are used in place.  EBCOT
 entropy coding runs on the host in the native coder; the streams are
 byte-identical to the JAX package's wherever the arithmetic is integer.
 A ``cfg.texture_backend`` other than "internal" codes every subband
@@ -140,7 +145,7 @@ def compress_dispatch(video: Video, cfg: CodecConfig,
         delta, lossless, coder = _operating_point(cfg, reversible, delta,
                                                   lossless)
         if cfg.TRLs > 1:
-            stream = transform.analyze(video.y, video.u, video.v, cfg)
+            stream = transform.analyze_jit(video.y, video.u, video.v, cfg)
         else:
             stream = transform.MCTFStream(video.y.to(torch.int16),
                                           video.u.to(torch.int16),
@@ -187,7 +192,8 @@ def _dispatch_stream(stream: transform.MCTFStream, cfg: CodecConfig,
         chroma, srl_levels, reversible, delta, cb, chroma_thr_arr, coder)
 
     mv_fields = [lev.mv for lev in stream.levels]
-    residues_dev = motion_coding.decorrelate(mv_fields) if mv_fields else []
+    residues_dev = (motion_coding.decorrelate_jit(mv_fields) if mv_fields
+                    else [])
 
     return dict(cfg=cfg, reversible=reversible, delta=delta,
                 lossless=lossless, coder=coder, stream=stream,
@@ -287,7 +293,7 @@ def _compress_with_backend(video: Video, cfg: CodecConfig, *,
     video, cfg, true_dims, true_frames = _pad_to_grid(video, cfg)
     cfg.validate()
     if cfg.TRLs > 1:
-        stream = transform.analyze(video.y, video.u, video.v, cfg)
+        stream = transform.analyze_jit(video.y, video.u, video.v, cfg)
     else:
         stream = transform.MCTFStream(video.y.to(torch.int16),
                                       video.u.to(torch.int16),
@@ -309,7 +315,7 @@ def _compress_with_backend(video: Video, cfg: CodecConfig, *,
 
     low = enc_planes(stream.low_y, stream.low_u, stream.low_v)
     mv_fields = [lev.mv for lev in stream.levels]
-    residues = ([_host(r) for r in motion_coding.decorrelate(mv_fields)]
+    residues = ([_host(r) for r in motion_coding.decorrelate_jit(mv_fields)]
                 if mv_fields else [])
     levels: List[LevelSection] = []
     for t, lev in enumerate(stream.levels):
@@ -431,8 +437,8 @@ def expand(vs: VideoStream, threshold: float = 0.0,
         lev_data.append((hy, hu, hv, torch.from_numpy(is_b).to(device)))
 
     # reconstruct motion fields (inverse inter-level/bidirectional coding)
-    mv_fields = motion_coding.correlate(residue_fields) if residue_fields \
-        else []
+    mv_fields = (motion_coding.correlate_jit(residue_fields)
+                 if residue_fields else [])
     levels = tuple(transform.LevelData(hy, hu, hv, mv.to(torch.int32), is_b)
                    for (hy, hu, hv, is_b), mv in zip(lev_data, mv_fields))
     mstream = transform.MCTFStream(ly, lu, lv, levels)
@@ -440,7 +446,8 @@ def expand(vs: VideoStream, threshold: float = 0.0,
         if not levels:
             ry, ru, rv = ly, lu, lv
         else:
-            ry, ru, rv = transform.synthesize(mstream, cfg, discard_TRLs)
+            ry, ru, rv = transform.synthesize_jit(mstream, cfg,
+                                                  discard_TRLs)
         ry, ru, rv = (p.to(torch.uint8) for p in (ry, ru, rv))
     if not to_host:
         with trace.stage("decode.wait_device"):

@@ -8,6 +8,13 @@ block selection on encode; tile scatter, dequantization and inverse DWT
 on decode.  Tier-1 entropy coding runs on the host in the native coder
 (:mod:`.fast`).  The host-only parts (block/frame records, slope units,
 hull slopes, tile templates) are copies of the JAX package's.
+
+The device stages the JAX package jits run as captured programs
+(``utils/graphs.py``): on encode, DWT + quantize + tile, the bp R-D
+simulation and the block compaction as one program per (N, H, W, levels,
+reversible, cb) (:func:`_encode_device`); on decode, the dequantization
+and inverse DWT (:func:`_dequant_idwt`).  The tile scatter stays eager:
+its tile count changes with every call.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import dwt2d
-from ..utils import trace
+from ..utils import graphs, trace
 from . import bp_device, fast, subbands
 
 #: slope-unit mapping: threshold T(u) = 2**((u - SLOPE_ANCHOR)/256), chosen
@@ -123,6 +130,11 @@ def _dequant_idwt(q: torch.Tensor, levels: int, reversible: bool,
     v = (v + torch.where(v > 0, 0.5, torch.where(v < 0, -0.5, 0.0))) * delta
     rec = dwt2d.synthesize(v, levels, "9/7") + 128.0
     return torch.round(rec).clamp(0, 255).to(torch.int32)
+
+
+#: :func:`_dequant_idwt` as a captured program, per (N, H, W, levels,
+#: reversible)
+_dequant_idwt_jit = graphs.captured(_dequant_idwt)
 
 
 def _hull_slopes(pass_ends: Sequence[int], dists: Sequence[float],
@@ -232,6 +244,23 @@ def _tile_dims(H: int, W: int, levels: int, cb: int
     return dims
 
 
+#: per-(H, W, levels, cb, N, device): :func:`_tile_dims` of N frames,
+#: uploaded once (an upload waits for the device)
+_DEVICE_DIMS_CACHE: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _tile_dims_on(H: int, W: int, levels: int, cb: int, N: int, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N * nb,) int32 true tile heights and widths on ``device``."""
+    key = (H, W, levels, cb, N, torch.device(device))
+    dims = _DEVICE_DIMS_CACHE.get(key)
+    if dims is None:
+        dims = tuple(torch.from_numpy(np.tile(d, N)).to(device)
+                     for d in _tile_dims(H, W, levels, cb))
+        _DEVICE_DIMS_CACHE[key] = dims
+    return dims
+
+
 def _to_int16(q: torch.Tensor):
     """(q as int16, a 0-dim bool set when some value does not fit)."""
     q16 = q.to(torch.int16)
@@ -294,29 +323,45 @@ def _slope_floor(min_threshold, N: int, nb: int, tpl, reversible: bool,
     return (thr[:, None] / wts[None, :] / margin).astype(np.float32)
 
 
+def _encode_device(planes: torch.Tensor, delta: torch.Tensor,
+                   th: torch.Tensor, tw: torch.Tensor, ms: torch.Tensor,
+                   levels: int, reversible: bool, cb: int):
+    """The device half of stage 1, the JAX package's three jitted stages
+    in a row: :func:`_dwt_quant_tiles`, ``bp_device.bp_max_slope`` and
+    :func:`_compact_tiles`.  ``th``/``tw``: (N * nb,) true tile dims;
+    ``ms``: (N, nb) slope floor.  Returns (compact, maxabs, keep,
+    overflow)."""
+    tiles, maxabs, ovf = _dwt_quant_tiles(planes, levels, reversible, delta,
+                                          cb)
+    N, nb = tiles.shape[0], tiles.shape[1]
+    smax, _d0 = bp_device.bp_max_slope(tiles.reshape(N * nb, cb, cb), th,
+                                       tw)
+    compact, keep = _compact_tiles(tiles, maxabs, smax.reshape(N, nb), ms)
+    return compact, maxabs, keep, ovf
+
+
+#: :func:`_encode_device` as a captured program, per (N, H, W, levels,
+#: reversible, cb); delta, tile dims and slope floor are its inputs
+_encode_device_jit = graphs.captured(_encode_device)
+
+
 def encode_frames_dispatch_sparse(planes: torch.Tensor, levels: int,
                                   reversible: bool, delta: float,
                                   codeblock_size: int, min_threshold=0.0,
                                   coder: str = "bp"):
     """Stage 1: DWT + quantize + tile, the bp R-D simulation and the
     threshold-driven block selection, all queued on the planes' device
-    without waiting for it.  ``planes``: (N, H, W) tensor."""
+    as one captured program.  ``planes``: (N, H, W) tensor."""
     dev = planes.device
-    d = torch.tensor(delta, dtype=torch.float32, device=dev)
     cb = codeblock_size
-    tiles, maxabs, ovf = _dwt_quant_tiles(planes, levels, reversible, d, cb)
-    N, nb = tiles.shape[0], tiles.shape[1]
-    H, W = planes.shape[1], planes.shape[2]
-    th, tw = _tile_dims(H, W, levels, cb)
-    smax, _d0 = bp_device.bp_max_slope(
-        tiles.reshape(N * nb, cb, cb),
-        torch.as_tensor(np.tile(th, N), device=dev),
-        torch.as_tensor(np.tile(tw, N), device=dev))
+    N, H, W = planes.shape
     tpl = _tile_template(H, W, levels, cb)
-    ms = _slope_floor(min_threshold, N, nb, tpl, reversible, float(delta),
-                      coder)
-    compact, keep = _compact_tiles(tiles, maxabs, smax.reshape(N, nb),
-                                   torch.as_tensor(ms, device=dev))
+    ms = _slope_floor(min_threshold, N, len(tpl), tpl, reversible,
+                      float(delta), coder)
+    compact, maxabs, keep, ovf = _encode_device_jit(
+        planes, torch.tensor(delta, dtype=torch.float32, device=dev),
+        *_tile_dims_on(H, W, levels, cb, N, dev),
+        torch.as_tensor(ms, device=dev), levels, reversible, cb)
     return (planes, compact, maxabs, keep, ovf, levels, reversible,
             float(delta), cb)
 
@@ -548,8 +593,8 @@ def decode_frames(efs: List[EncodedFrame], threshold: float = 0.0,
         packed = torch.from_numpy(
             np.ascontiguousarray(dense[:, :Hd, :Wd])).to(device)
     with trace.stage("decode.idwt_dispatch"):
-        return _dequant_idwt(packed, levels - discard_levels, ef0.reversible,
-                             d)
+        return _dequant_idwt_jit(packed, levels - discard_levels,
+                                 ef0.reversible, d)
 
 
 def encode_frame(plane, levels: int, reversible: bool = True,

@@ -5,7 +5,9 @@ Port of ``qsvc_tpu/mctf/motion_coding.py`` (reference
 half the co-located field of level ``t+1`` (pair ``i`` maps to coarse
 pair ``i // 2``, C truncating division), and at the coarsest level
 ``NEXT -= PREV``.  Coarser grids are expanded to finer ones by
-nearest-neighbour duplication.
+nearest-neighbour duplication.  ``decorrelate_jit`` and
+``correlate_jit`` are the captured programs of the two
+(``utils/graphs.py``), one per list of field shapes.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import List, Sequence
 import torch
 
 from ..ops.lifting import tdiv
+from ..utils import graphs
 
 
 def _expand_to(coarse: torch.Tensor, By: int, Bx: int) -> torch.Tensor:
@@ -58,3 +61,9 @@ def correlate(residues: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         res = residues[t]
         fields[t] = res + tdiv(_coarse_ref(fields[t + 1], res.shape), 2)
     return fields
+
+
+#: the per-level lists as one captured program each (CPU tensors run the
+#: eager functions)
+decorrelate_jit = graphs.captured(decorrelate)
+correlate_jit = graphs.captured(correlate)

@@ -7,7 +7,10 @@ estimation -> predict -> update, and the inverse un-update -> correlate
 Frame pairs form the leading batch axis.  All arithmetic runs in int16
 (pixels, 4:4:4 interpolations, residues and update contributions stay
 below 2^10 in magnitude); SAD sums and update accumulations widen to
-int32 inside the steps.
+int32 inside the steps.  ``analyze_jit`` and ``synthesize_jit`` are the
+same functions as captured programs (``utils/graphs.py``): one CUDA
+graph per configuration and shape, replayed per call, as the JAX
+package's ``jax.jit`` programs are.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
+from ..utils import graphs
 from . import me, predict, update
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -176,3 +180,10 @@ def _synthesize(stream: MCTFStream, cfg: CodecConfig, discard_TRLs: int,
         low = _synthesize_level(low, lev, lp.block_size, lp.search_range,
                                 cfg, update_evens)
     return low
+
+
+#: :func:`analyze` and :func:`synthesize` (with ``discard_TRLs``, which
+#: also covers the JAX package's ``api._synthesize_partial``) as captured
+#: programs; CPU tensors run the eager functions
+analyze_jit = graphs.captured(analyze)
+synthesize_jit = graphs.captured(synthesize)

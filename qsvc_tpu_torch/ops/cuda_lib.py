@@ -9,12 +9,15 @@ kernel modules freely.
 
 ``launches`` counts kernel launches per kernel name; the wrappers in
 ``cuda_me.py`` / ``cuda_mc.py`` add one where they launch, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  While a CUDA graph is
+captured (``utils/graphs.py``) nothing runs: :func:`counting_into` sends
+that thread's counts to the graph's record, which each replay adds.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import glob
 import os
@@ -35,12 +38,26 @@ launches: collections.Counter = collections.Counter()
 
 _lib = None
 _lock = threading.Lock()
+#: per thread: the Counter of the graph being captured, if any
+_capturing = threading.local()
 #: compiler output of the build in this process (ptxas register/smem use)
 build_log = ""
 
 
 def reset_launches() -> None:
     launches.clear()
+
+
+@contextlib.contextmanager
+def counting_into(counter: collections.Counter):
+    """Count this thread's launches into ``counter`` instead of
+    :data:`launches` (a graph capture records kernels and runs none)."""
+    prev = getattr(_capturing, "counter", None)
+    _capturing.counter = counter
+    try:
+        yield counter
+    finally:
+        _capturing.counter = prev
 
 
 def _nvcc() -> str:
@@ -126,8 +143,9 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def launched(name: str, err: int) -> None:
     """Raise on a launch error (the C side returns cudaGetLastError())
-    and count the launch."""
+    and count the launch (into the capture's record while capturing)."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    launches[name] += 1
+    counter = getattr(_capturing, "counter", None)
+    (launches if counter is None else counter)[name] += 1

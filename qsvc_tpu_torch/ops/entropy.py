@@ -22,9 +22,13 @@ def histogram_entropy(values: torch.Tensor, bins: int = 256) -> torch.Tensor:
     # out-of-range values go to a spill bin that is dropped below
     flat = torch.where((flat >= 0) & (flat < bins), flat, bins)
     rows = torch.arange(n, device=flat.device)[:, None] * (bins + 1)
-    count = torch.bincount((flat + rows).reshape(-1),
-                           minlength=n * (bins + 1))
-    count = count.reshape(n, bins + 1)[:, :bins].to(torch.int32)
+    # a scatter-add, not bincount: bincount reads its input's maximum
+    # back to the host on CUDA, which no CUDA graph capture allows
+    index = (flat + rows).reshape(-1)
+    count = torch.zeros(n * (bins + 1), dtype=torch.int32,
+                        device=flat.device).index_add_(
+        0, index, torch.ones_like(index, dtype=torch.int32))
+    count = count.reshape(n, bins + 1)[:, :bins]
     total = count.sum(dim=1, keepdim=True)
     p = count.to(torch.float32) / total.to(torch.float32)
     terms = torch.where(count > 0, p * torch.log2(p), 0.0)

@@ -1,16 +1,24 @@
 """PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update,
-K4 one-direction update) against their plain PyTorch versions.
+K4 one-direction update) against their plain PyTorch versions, and the
+captured programs (``utils/graphs.py``) against their eager runs.
 
 Tests marked ``gpu`` need a CUDA device and skip without one;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship
 shapes on the card.  The wrappers' argument checks run anywhere."""
 
+import collections
+import concurrent.futures
+
 import numpy as np
 import pytest
 import torch
 
-from qsvc_tpu_torch.mctf import me, predict, update
+from qsvc_tpu_torch.codec import frame_codec
+from qsvc_tpu_torch.config import CodecConfig
+from qsvc_tpu_torch.io import synthetic_video
+from qsvc_tpu_torch.mctf import me, motion_coding, predict, transform, update
 from qsvc_tpu_torch.ops import cuda_lib, cuda_mc, cuda_me
+from qsvc_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -423,3 +431,149 @@ def test_update_wrappers_reject_planes_past_int32(wrapper):
                      device="meta")
     with pytest.raises(ValueError, match="pixels"):
         _mc_call(wrapper, planes, mv)
+
+
+# ---- captured programs: replay == eager, bit for bit
+
+_GRAPH_CFG = dict(pixels_in_x=128, pixels_in_y=64, TRLs=3, GOPs=1,
+                  block_size=16, search_range=4, update_factor=0.25)
+GRAPH_CASES = {"whole-pixel": {}, "a=1": dict(subpixel_accuracy=1),
+               "ola_d4": dict(block_overlaping=4),
+               "border2": dict(border_size=2)}
+
+
+def _video(device, seed, cfg):
+    vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                          seed=seed, kind="translate")
+    return [torch.from_numpy(p).to(device) for p in vid.planes()]
+
+
+def _flat_stream(st):
+    return [st.low_y, st.low_u, st.low_v] + [a for lev in st.levels
+                                             for a in lev]
+
+
+def _assert_same(got, want, label=""):
+    got, want = list(got), list(want)
+    assert len(got) == len(want), label
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), label
+
+
+def _programs(planes, cfg):
+    """Every captured program on one input, each with its eager run:
+    ``[(name, replayed, eager)]``, the results as lists of tensors."""
+    st = transform.analyze_jit(*planes, cfg)
+    st_e = transform.analyze(*planes, cfg)
+    rows = [("analyze", _flat_stream(st), _flat_stream(st_e))]
+    for d in (0, 1):
+        sub = st._replace(levels=st.levels[d:])
+        rows.append((f"synthesize discard {d}",
+                     transform.synthesize_jit(sub, cfg, d),
+                     transform.synthesize(sub, cfg, d)))
+    mvs = [lev.mv for lev in st.levels]
+    res = motion_coding.decorrelate_jit(mvs)
+    rows.append(("decorrelate", res, motion_coding.decorrelate(mvs)))
+    rows.append(("correlate", motion_coding.correlate_jit(res),
+                 motion_coding.correlate(res)))
+    luma = torch.cat([st.low_y] + [lev.high_y for lev in st.levels])
+    N, H, W = luma.shape
+    nb = len(frame_codec._tile_template(H, W, 2, 16))
+    for rev in (True, False):
+        args = (luma, torch.tensor(1.5, device=luma.device),
+                *frame_codec._tile_dims_on(H, W, 2, 16, N, luma.device),
+                torch.full((N, nb), 0.5, device=luma.device), 2, rev, 16)
+        rows.append((f"stage 1 rev={rev}",
+                     frame_codec._encode_device_jit(*args),
+                     frame_codec._encode_device(*args)))
+        q = frame_codec._encode_device(*args)[0]          # any int32 stack
+        q = q.reshape(-1)[:N * H * W].reshape(N, H, W).to(torch.int32)
+        rows.append((f"dequant_idwt rev={rev}",
+                     [frame_codec._dequant_idwt_jit(q, 2, rev, args[1])],
+                     [frame_codec._dequant_idwt(q, 2, rev, args[1])]))
+    return rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_captured_programs_equal_eager(cuda, name):
+    """analyze_jit, synthesize_jit (discard 0 and 1), decorrelate_jit,
+    correlate_jit, stage 1 and _dequant_idwt: replay == eager, bit for
+    bit, on the first call (which already replays) and on a second input
+    through the graphs of the first (stale inputs would show)."""
+    cfg = CodecConfig(**_GRAPH_CFG, **GRAPH_CASES[name])
+    graphs.clear()
+    for seed in (1, 2):
+        for prog, got, want in _programs(_video(cuda, seed, cfg), cfg):
+            _assert_same(got, want, prog)
+        assert {g["replays"] for g in graphs.stats()} == {seed}
+
+
+@pytest.mark.gpu
+def test_captured_results_own_their_memory(cuda):
+    """Aliasing: the first call's results are unchanged after the next
+    replay of the same graph, and never share the graph's buffers."""
+    cfg = CodecConfig(**_GRAPH_CFG)
+    a = transform.analyze_jit(*_video(cuda, 1, cfg), cfg)
+    keep = [t.clone() for t in _flat_stream(a)]
+    b = transform.analyze_jit(*_video(cuda, 2, cfg), cfg)
+    _assert_same(_flat_stream(a), keep)
+    assert not torch.equal(a.levels[0].high_y, b.levels[0].high_y)
+    ptrs = {t.data_ptr() for t in _flat_stream(b)}
+    assert not ptrs & {t.data_ptr() for t in _flat_stream(a)}
+
+
+@pytest.mark.gpu
+def test_captured_programs_in_threads(cuda):
+    """Four threads replay (and the first capture) the same and other
+    graphs at once, as ``api.expand_gops`` does: each result equals its
+    eager run."""
+    cfg = CodecConfig(**_GRAPH_CFG)
+    inputs = [_video(cuda, s, cfg) for s in range(4)]
+    streams = [transform.analyze(*p, cfg) for p in inputs]
+    want = [transform.synthesize(st, cfg) for st in streams]
+    graphs.clear()
+
+    def job(i):
+        out = []
+        for _ in range(3):
+            out.append(transform.synthesize_jit(streams[i], cfg))
+            out.append(transform.analyze_jit(*inputs[i], cfg))
+        return out
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        results = list(ex.map(job, range(4), timeout=600))
+    for i, out in enumerate(results):
+        for k in range(0, len(out), 2):
+            _assert_same(out[k], want[i])
+            _assert_same(_flat_stream(out[k + 1]),
+                         _flat_stream(streams[i]))
+
+
+@pytest.mark.gpu
+def test_replay_counts_the_launches_of_the_eager_run(cuda):
+    """A replay adds the kernels its capture recorded; the capture itself
+    counts nothing."""
+    cfg = CodecConfig(**_GRAPH_CFG)
+    planes = _video(cuda, 1, cfg)
+    st = transform.analyze(*planes, cfg)
+    cuda_lib.reset_launches()
+    transform.analyze(*planes, cfg)
+    transform.synthesize(st, cfg)
+    eager = collections.Counter(cuda_lib.launches)
+    assert eager["me_refine"] and eager["mc_predict"] and eager["mc_update2"]
+    graphs.clear()
+    transform.analyze_jit(*planes, cfg)       # warm-up + capture + replay
+    transform.synthesize_jit(st, cfg)
+    cuda_lib.reset_launches()
+    transform.analyze_jit(*planes, cfg)
+    transform.synthesize_jit(st, cfg)
+    assert collections.Counter(cuda_lib.launches) == eager
+    names = {g["name"]: g["launches"] for g in graphs.stats()}
+    assert names["analyze"]["me_refine"] == eager["me_refine"]
+
+
+@pytest.mark.gpu
+def test_captured_program_rejects_mixed_devices(cuda):
+    fn = graphs.captured(lambda a, b: a + b)
+    with pytest.raises(ValueError, match="one device"):
+        fn(torch.zeros(1), torch.zeros(1, device=cuda))

@@ -1,6 +1,7 @@
-"""The port's module surface: every public top-level function and class
-of the JAX package has a counterpart of the same name in the same module
-of ``qsvc_tpu_torch``, apart from the TPU/XLA scaffolding listed below.
+"""The port's module surface: every public top-level function, class and
+name bound by assignment (``analyze_jit = jax.jit(analyze, ...)``) of the
+JAX package has a counterpart of the same name in the same module of
+``qsvc_tpu_torch``, apart from the TPU/XLA scaffolding listed below.
 
 Both packages are read with ``ast``, so nothing is imported."""
 
@@ -26,12 +27,30 @@ NOT_PORTED = {
 }
 
 
+def _bound_names(node):
+    """Module-level names a statement binds: a def or class, or the
+    plain-name targets of an assignment (``analyze_jit = jax.jit(...)``;
+    tuple targets unpacked)."""
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+        return [node.name]
+    if isinstance(node, ast.Assign):
+        targets = node.targets
+    elif isinstance(node, ast.AnnAssign):
+        targets = [node.target]
+    else:
+        return []
+    names = []
+    for t in targets:
+        elts = t.elts if isinstance(t, (ast.Tuple, ast.List)) else [t]
+        names += [e.id for e in elts if isinstance(e, ast.Name)]
+    return names
+
+
 def _public_names(path):
     with open(path) as f:
         tree = ast.parse(f.read())
-    return [n.name for n in tree.body
-            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
-            and not n.name.startswith("_")]
+    return [name for n in tree.body for name in _bound_names(n)
+            if not name.startswith("_")]
 
 
 def _jax_modules():
