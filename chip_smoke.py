@@ -55,6 +55,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    2 GOPs of 1920x1088 losslessly; both ranks' ``compress_distributed``
    bytes equal the sequential encode's, their ``synthesize_sharded``
    frames equal the sequential synthesis, and each rank launched K4;
+5c. where several cards are visible, the nccl check of
+   ``tools/nccl_halo.py`` across all of them, one rank per card: the
+   flagship's 4 GOPs lossy, at sub-pixel accuracy 2 and lossless,
+   every rank's ``compress_distributed`` == ``api.compress``, and the
+   lossless run's ``synthesize_sharded`` == ``transform.synthesize`` and
+   ``encode_gops_distributed`` == ``api.compress_gops``; on one card it
+   says so and runs nothing;
 6. the sub-pixel flagship: phase 4's run at sub-pixel accuracy 2 (4
    GOPs, fps, bpp, PSNR and launches; fails if K1-K3 never launch or
    PSNR-Y < 25 dB), then one GOP at accuracy 3 with OLA (block_overlaping
@@ -105,7 +112,7 @@ launches its capture recorded, and the eager warm-up before a capture
 counts as the run it is; times and bound at the first shape phase 2
 names for it);
 the last line is ``{"ok": true, "device": {...}}`` with the number of
-cards the run used.  Without a CUDA device the script exits 1 and
+visible cards.  Without a CUDA device the script exits 1 and
 prints no result.
 
 A kernel's bound is the least time the card could take for its work:
@@ -911,11 +918,13 @@ def _halo_rank(rank, world, store, device, cfg):
         st = ptransform.analyze_sharded(
             *pdist.shard_video_gops(vid, cfg, mesh), cfg, mesh)
         rec = ptransform.synthesize_sharded(st, cfg, mesh)
-        dist.barrier()      # no rank tears down while a peer still sends
-        return dict(data=data, launches=launches,
-                    **{c: p.cpu().numpy() for c, p in zip("yuv", rec)})
+        out = dict(data=data, launches=launches,
+                   **{c: p.cpu().numpy() for c, p in zip("yuv", rec)})
+        pdist.end_group()
+        return out
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():       # a failed rank: no barrier
+            dist.destroy_process_group()
 
 
 def phase_halo(dev):
@@ -955,6 +964,31 @@ def phase_halo(dev):
           f"bytes; synthesize_sharded == transform.synthesize; K4 launches "
           f"per rank {[int(res['launches']) for res in ranks]}; ranks took "
           f"{ranks_s:.3f} s with start-up)", flush=True)
+
+
+def phase_nccl():
+    """5c: where several cards are visible, ``tools/nccl_halo.py``'s
+    check over nccl, one rank per card (its lossy, sub-pixel and lossless
+    flagship runs against the sequential ones on this card)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("phase 5c nccl across cards: one card visible, not run",
+              flush=True)
+        return
+    from tools.nccl_halo import check
+    try:
+        res = check(cards)
+    except RuntimeError as e:           # a rank failed: the phase fails
+        raise SystemExit(f"phase 5c: a rank failed: {e}")
+    if not res["ok"]:
+        raise SystemExit(f"phase 5c: {res['mismatches']}")
+    rows = [f"{name} {run['distributed_fps']:.3f} fps distributed / "
+            f"{run['sequential_fps']:.3f} sequential, halo s per rank "
+            f"{[round(x, 4) for x in run['rank_halo_seconds']]}"
+            for name, run in res["runs"].items()]
+    print(f"phase 5c nccl across {cards} cards: ok (every rank's streams "
+          f"== the sequential ones, lossless synthesis and closed GOPs "
+          f"too; {'; '.join(rows)})", flush=True)
 
 
 def _cli(argv):
@@ -1645,6 +1679,7 @@ def main() -> int:
               if k in SEQUENTIAL_KERNELS}
     counts["mc_update1"] = phase_sharded(dev)["mc_update1"]
     phase_halo(dev)
+    phase_nccl()
     phase_subpixel(dev)
     phase_surface(dev)
     for name, n in phase_rest(dev).items():
@@ -1664,10 +1699,10 @@ def main() -> int:
                          f"{bad}")
     print(f"total {time.time() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
-    # every phase ran on the one card of `dev`
+    # phases 5c and 8d use every visible card, the others the one of `dev`
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -186,14 +186,14 @@ def _dispatch_stream(stream: transform.MCTFStream, cfg: CodecConfig,
 
     luma_thr_arr = np.concatenate(luma_thr)
     chroma_thr_arr = np.concatenate(chroma_thr)
-    pend_l = frame_codec.encode_frames_dispatch_sparse(
-        luma, srl_levels, reversible, delta, cb, luma_thr_arr, coder)
-    pend_c = frame_codec.encode_frames_dispatch_sparse(
-        chroma, srl_levels, reversible, delta, cb, chroma_thr_arr, coder)
-
-    mv_fields = [lev.mv for lev in stream.levels]
-    residues_dev = (motion_coding.decorrelate_jit(mv_fields) if mv_fields
-                    else [])
+    with trace.stage("texture_dispatch"):
+        pend_l = frame_codec.encode_frames_dispatch_sparse(
+            luma, srl_levels, reversible, delta, cb, luma_thr_arr, coder)
+        pend_c = frame_codec.encode_frames_dispatch_sparse(
+            chroma, srl_levels, reversible, delta, cb, chroma_thr_arr, coder)
+        mv_fields = [lev.mv for lev in stream.levels]
+        residues_dev = (motion_coding.decorrelate_jit(mv_fields)
+                        if mv_fields else [])
 
     return dict(cfg=cfg, reversible=reversible, delta=delta,
                 lossless=lossless, coder=coder, stream=stream,

@@ -27,6 +27,7 @@ ranks, or for ranks that share one card):
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import tempfile
@@ -39,6 +40,7 @@ import torch.multiprocessing as mp
 
 from ..config import CodecConfig
 from ..io.yuv import Video
+from ..utils import trace
 from . import mesh as pmesh
 from . import transform as ptransform
 
@@ -49,7 +51,8 @@ def initialize(device, init_method: Optional[str] = None,
     """Join the process group of this encode.
 
     The backend follows ``device``: ``nccl`` for a CUDA device (which
-    becomes this process's current device), ``gloo`` for the CPU.
+    becomes this process's current device and the group's bound device),
+    ``gloo`` for the CPU.
     ``init_method`` (``tcp://host:port`` or ``file://path``) with
     ``world_size`` and ``rank``, or else torchrun's ``RANK`` and
     ``WORLD_SIZE`` with ``MASTER_ADDR``/``MASTER_PORT`` (``env://``).  With
@@ -65,11 +68,32 @@ def initialize(device, init_method: Optional[str] = None,
     if world_size is None or rank is None:
         raise ValueError("init_method needs world_size and rank")
     device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)     # before the group exists
+    dist.init_process_group("nccl" if cuda else "gloo",
                             init_method=init_method,
-                            world_size=int(world_size), rank=int(rank))
+                            world_size=int(world_size), rank=int(rank),
+                            device_id=device if cuda else None)
+
+
+def end_group() -> None:
+    """End this rank's process group, the same way on every rank and
+    either backend: a barrier, so that no rank tears down while a peer
+    still sends to it; on ``nccl`` a wait for the card's queued work; then
+    the group's destruction.  Without a group this does nothing.
+
+    Every rank that joined a group with :func:`initialize` leaves it
+    through this, after its last collective and before it returns."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        dev = torch.cuda.current_device()
+        dist.barrier(device_ids=[dev])
+        torch.cuda.synchronize(dev)
+    else:
+        dist.barrier()
+    dist.destroy_process_group()
 
 
 def make_gop_mesh(device, group=None) -> pmesh.GopMesh:
@@ -169,8 +193,9 @@ def compress_distributed(video: Video, cfg: CodecConfig,
     delta, lossless, coder = api._operating_point(cfg, reversible, delta,
                                                   lossless)
 
-    gy, gu, gv = shard_video_gops(video, cfg, mesh)
-    st = ptransform.analyze_sharded(gy, gu, gv, cfg, mesh)
+    with trace.stage("upload+sharded_mctf_dispatch"):
+        gy, gu, gv = shard_video_gops(video, cfg, mesh)
+        st = ptransform.analyze_sharded(gy, gu, gv, cfg, mesh)
     # drop the duplicated right-boundary low frame everywhere but on the
     # last chunk (the sequential low band has G*(S/2^{T-1}) + 1 frames)
     trim = slice(None) if mesh.rank == D - 1 else slice(None, -1)
@@ -182,9 +207,11 @@ def compress_distributed(video: Video, cfg: CodecConfig,
     if D == 1:
         frags = [frag]
     else:
-        blobs = _allgather_indexed_bytes([(mesh.rank, frag.to_bytes())],
-                                         D, mesh)
-        frags = [VideoStream.from_bytes(b) for b in blobs]
+        with trace.stage("gather_fragments"):
+            blobs = _allgather_indexed_bytes(
+                [(mesh.rank, frag.to_bytes())], D, mesh)
+        with trace.stage("parse_fragments"):
+            frags = [VideoStream.from_bytes(b) for b in blobs]
 
     low = [fr for f in frags for fr in f.low]
     levels_out: List[LevelSection] = []
@@ -261,14 +288,17 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
                   cfg: CodecConfig, device: str) -> Dict:
     """One rank of a scaling point: joins the group, runs
     ``encode_step_sharded`` on its chunk once to warm up and ``reps``
-    times timed; returns its seconds per call and its kernel launches."""
+    times timed; returns its seconds per call, the halo exchanges' seconds
+    and payload bytes (sent and received) per timed call, and its kernel
+    launches."""
     from ..io import synthetic_video
     from ..ops import cuda_lib
     dev = torch.device("cuda", rank) if device == "cuda" else torch.device(
         device)
     initialize(dev, init_method=f"file://{store}", world_size=n, rank=rank)
     try:
-        mesh = make_gop_mesh(dev)
+        log = pmesh.HaloLog()
+        mesh = dataclasses.replace(make_gop_mesh(dev), halo_log=log)
         vid = synthetic_video(cfg.pictures, cfg.pixels_in_y,
                               cfg.pixels_in_x, seed=0)
         planes = shard_video_gops(vid, cfg, mesh)
@@ -279,15 +309,20 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
                 torch.cuda.synchronize(dev)
         cuda_lib.reset_launches()
         step()                                   # warm-up
+        log.clear()
         dist.barrier(group=mesh.group)
         t0 = time.perf_counter()
         for _ in range(reps):
             step()
         dt = (time.perf_counter() - t0) / reps
-        dist.barrier(group=mesh.group)   # no rank leaves while a peer sends
-        return {"seconds": dt, "launches": dict(cuda_lib.launches)}
+        out = {"seconds": dt, "halo_seconds": log.seconds() / reps,
+               "halo_bytes": (log.sent + log.received) // reps,
+               "launches": dict(cuda_lib.launches)}
+        end_group()
+        return out
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():           # a failed rank: no barrier
+            dist.destroy_process_group()
 
 
 def scaling_point(n: int, reps: int = SCALING_REPS,
@@ -295,9 +330,11 @@ def scaling_point(n: int, reps: int = SCALING_REPS,
     """One point of :func:`measure_scaling`: ``encode_step_sharded`` of
     ``n`` GOPs of ``cfg`` on ``n`` ranks (:func:`run_ranks`; ``nccl``
     with rank r on ``cuda:r`` for a CUDA ``device``, ``gloo`` for the
-    CPU).  Returns ``{n, fps, seconds, launches}``: the frames of the
-    ``n``-GOP sequence over the slowest rank's seconds per call, and the
-    kernel launches of all ranks over the warm-up and the timed calls."""
+    CPU).  Returns ``{n, fps, seconds, rank_seconds, rank_halo_seconds,
+    rank_halo_bytes, launches}``: the frames of the ``n``-GOP sequence
+    over the slowest rank's seconds per call, each rank's seconds, halo
+    seconds and halo payload bytes per call, and the kernel launches of
+    all ranks over the warm-up and the timed calls."""
     device = torch.device(device)
     _check_cards(n, device)
     c = (cfg or SCALING_CONFIG).replace(GOPs=n)
@@ -308,6 +345,9 @@ def scaling_point(n: int, reps: int = SCALING_REPS,
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     return {"n": n, "fps": c.pictures / seconds, "seconds": seconds,
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "rank_halo_seconds": [r["halo_seconds"] for r in ranks],
+            "rank_halo_bytes": [r["halo_bytes"] for r in ranks],
             "launches": launches}
 
 
@@ -323,14 +363,15 @@ def measure_scaling(n_ranks: int, reps: int = SCALING_REPS,
     against ``n_ranks`` ranks with the same work per rank (one GOP of
     ``cfg``, by default :data:`SCALING_CONFIG`), each point a
     :func:`scaling_point`.  Returns ``{n_devices, fps_1, fps_n,
-    efficiency, launches}`` with efficiency = fps_n / (n * fps_1) and the
-    launches of each point by its ``n``; at ``n_ranks`` = 1 the one point
-    is both.  With a CUDA ``device`` every rank has its own card: more
-    ranks than cards raise."""
+    efficiency, launches, points}`` with efficiency = fps_n / (n * fps_1),
+    and the launches of each point and the point itself by its ``n``; at
+    ``n_ranks`` = 1 the one point is both.  With a CUDA ``device`` every
+    rank has its own card: more ranks than cards raise."""
     _check_cards(n_ranks, torch.device(device))
     one = scaling_point(1, reps, cfg, device=device)
     many = (one if n_ranks == 1
             else scaling_point(n_ranks, reps, cfg, device=device))
     return {"n_devices": n_ranks, "fps_1": one["fps"], "fps_n": many["fps"],
             "efficiency": efficiency(many, one),
-            "launches": {1: one["launches"], n_ranks: many["launches"]}}
+            "launches": {1: one["launches"], n_ranks: many["launches"]},
+            "points": {1: one, n_ranks: many}}

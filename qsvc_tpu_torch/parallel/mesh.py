@@ -15,12 +15,66 @@ communication.  The device is always the one passed.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+class HaloLog:
+    """What the halo exchanges of a mesh cost: the payload bytes this rank
+    sent and received, and each exchange's span.  On a CUDA device a span
+    is two events on the current stream around the exchange (what the
+    compute stream waits for it, the peer's lateness included); on the
+    CPU, two host clock readings."""
+
+    def __init__(self):
+        self.sent = 0
+        self.received = 0
+        self._spans: List[Tuple] = []
+
+    def start(self, device: torch.device):
+        """Open a span on ``device``; returns the token :meth:`stop`
+        takes."""
+        if device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(device))
+            return device, ev
+        return device, time.perf_counter()
+
+    def stop(self, token, sent: int, received: int) -> None:
+        """Close the span of ``token``, adding the exchange's bytes."""
+        device, begin = token
+        if device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(device))
+        else:
+            end = time.perf_counter()
+        self._spans.append((begin, end))
+        self.sent += sent
+        self.received += received
+
+    @property
+    def exchanges(self) -> int:
+        return len(self._spans)
+
+    def seconds(self) -> float:
+        """The spans' total seconds (waits for the CUDA events)."""
+        total = 0.0
+        for begin, end in self._spans:
+            if isinstance(begin, torch.cuda.Event):
+                end.synchronize()
+                total += begin.elapsed_time(end) / 1e3
+            else:
+                total += end - begin
+        return total
+
+    def clear(self) -> None:
+        self.sent = self.received = 0
+        self._spans.clear()
 
 
 @dataclass(frozen=True)
@@ -29,16 +83,20 @@ class GopMesh:
     rank: int                      # index of this rank's chunk
     size: int                      # number of ranks (chunks)
     device: torch.device           # where this rank's chunk is computed
-    group: Optional[object] = None  # the process group; None: one process
+    #: the process group; None: the default group (or none: one process)
+    group: Optional[object] = None
     #: halo frames go through host memory (gloo takes CPU tensors only);
     #: False for nccl, which sends CUDA tensors as they are
     host_staged: bool = True
+    #: where the halo exchanges are logged, if anywhere (a caller that
+    #: measures them sets one with ``dataclasses.replace``)
+    halo_log: Optional[HaloLog] = None
 
 
 def make_mesh(device, group=None) -> GopMesh:
     """The mesh of this process on ``device``: its rank in ``group`` (the
-    default group when None) once ``torch.distributed`` is initialised,
-    rank 0 of 1 otherwise."""
+    default group when None, which the mesh then names by None) once
+    ``torch.distributed`` is initialised, rank 0 of 1 otherwise."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -47,7 +105,10 @@ def make_mesh(device, group=None) -> GopMesh:
             raise ValueError("a process group was given but "
                              "torch.distributed is not initialised")
         return GopMesh(0, 1, device)
-    group = group if group is not None else dist.group.WORLD
+    # the default group stays None here: a mesh that held it would keep
+    # it alive past destroy_process_group, to be freed at interpreter
+    # exit, where a gloo group's teardown can abort the process
+    # ("terminate called without an active exception")
     backend = str(dist.get_backend(group))
     return GopMesh(rank=dist.get_rank(group),
                    size=dist.get_world_size(group), device=device,

@@ -52,10 +52,14 @@ def _shift(x: torch.Tensor, mesh: GopMesh, step: int
     ``batch_isend_irecv`` with the send and the receive this rank has
     (none across the ends of the chunk run).  Returns the received frame,
     or None on the rank with no such neighbour.  The frame travels as its
-    bytes: nccl takes no int16 tensor."""
+    bytes: nccl takes no int16 tensor.  With nccl the wait orders the
+    current stream after the exchange and does not block the host; the
+    caching allocator keeps both buffers until the exchange is done."""
     dst, src = mesh.rank + step, mesh.rank - step
     if mesh.size == 1:
         return None
+    log = mesh.halo_log
+    begin = None if log is None else log.start(x.device)
     host = torch.device("cpu") if mesh.host_staged else x.device
     payload = x.to(host).contiguous().view(torch.uint8)
     ops = []
@@ -69,7 +73,11 @@ def _shift(x: torch.Tensor, mesh: GopMesh, step: int
                               group_peer=src))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return None if got is None else got.view(x.dtype).to(x.device)
+    out = None if got is None else got.view(x.dtype).to(x.device)
+    if log is not None:
+        log.stop(begin, payload.numel() if 0 <= dst < mesh.size else 0,
+                 0 if got is None else got.numel())
+    return out
 
 
 def _right_shift(x, mesh):

@@ -259,8 +259,7 @@ for name, (kw, G, jstream) in cases.items():
         gops=pdist.encode_gops_distributed(vid, cfg, mesh, reversible=True))
 with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
-dist.barrier()          # no rank tears down while a peer still sends
-dist.destroy_process_group()
+pdist.end_group()
 """
 
 
@@ -373,13 +372,20 @@ def test_measure_scaling_two_gloo_ranks(monkeypatch):
     cfg = CodecConfig(**SCALING_KW)
     res = pdist.measure_scaling(2, reps=1, cfg=cfg, device="cpu")
     assert set(res) == {"n_devices", "fps_1", "fps_n", "efficiency",
-                        "launches"}
+                        "launches", "points"}
     assert res["n_devices"] == 2
     assert res["fps_1"] > 0 and res["fps_n"] > 0
     assert res["efficiency"] == pytest.approx(
         res["fps_n"] / (2 * res["fps_1"]))
     # CPU ranks run the plain versions: no kernel launches
     assert res["launches"] == {1: {}, 2: {}}
+    one, two = res["points"][1], res["points"][2]
+    assert one["rank_halo_bytes"] == [0] and len(one["rank_seconds"]) == 1
+    # one temporal level: each rank sends one int16 4:4:4 frame and
+    # receives one per call
+    assert two["rank_halo_bytes"] == [2 * 3 * 32 * 32 * 2] * 2
+    assert len(two["rank_seconds"]) == 2
+    assert all(s >= 0 for s in two["rank_halo_seconds"])
 
 
 @pytest.mark.parametrize("n", [1, 2])
@@ -418,3 +424,77 @@ def test_run_ranks_stops_the_peers_of_a_failed_rank():
     with pytest.raises(RuntimeError, match="ranks failed"):
         pdist.run_ranks(_fail_on_rank_1, 2, timeout=120)
     assert time.monotonic() - t0 < 60
+
+
+# ------------------------------------------- (h) halo payloads, teardown
+
+def _shift_rank(rank, n, store, host_staged):
+    """Both shifts of an int16 and an int32 frame with negative values;
+    returns what arrived and the halo log's counts."""
+    import dataclasses
+    pdist.initialize("cpu", init_method=f"file://{store}", world_size=n,
+                     rank=rank)
+    log = pmesh.HaloLog()
+    mesh = dataclasses.replace(pdist.make_gop_mesh("cpu"),
+                               host_staged=host_staged, halo_log=log)
+    out = {}
+    for dtype in (np.int16, np.int32):
+        x = torch.from_numpy(_halo_frame(rank, dtype))
+        for step in (1, -1):
+            got = ptransform._shift(x, mesh, step)
+            out[dtype.__name__, step] = None if got is None else (
+                str(got.dtype), got.numpy())
+    out["log"] = (log.exchanges, log.sent, log.received, log.seconds())
+    pdist.end_group()
+    return out
+
+
+def _halo_frame(rank, dtype):
+    info = np.iinfo(dtype)
+    return np.random.default_rng(rank).integers(
+        info.min, info.max, (3, 6, 10), endpoint=True).astype(dtype)
+
+
+@pytest.mark.parametrize("host_staged", [True, False])
+def test_shift_payload_round_trips_int16_and_int32(host_staged):
+    """The halo travels as its bytes (nccl takes no int16 tensor): both
+    shifts give each rank its neighbour's frame bit for bit, negative
+    values and dtype included, staged through host memory or not."""
+    ranks = pdist.run_ranks(_shift_rank, 2, host_staged, timeout=120)
+    for dtype in (np.int16, np.int32):
+        name = dtype.__name__
+        assert ranks[0][name, 1] is None and ranks[1][name, -1] is None
+        for r, step, src in ((1, 1, 0), (0, -1, 1)):
+            got_dtype, got = ranks[r][name, step]
+            assert got_dtype == str(torch.from_numpy(got).dtype)
+            assert got.dtype == dtype
+            np.testing.assert_array_equal(got, _halo_frame(src, dtype))
+    # each rank sent 2 frames and received 2 (one of each dtype)
+    nbytes = sum(_halo_frame(0, d).nbytes for d in (np.int16, np.int32))
+    for exchanges, sent, received, seconds in (r["log"] for r in ranks):
+        assert (exchanges, sent, received) == (4, nbytes, nbytes)
+        assert seconds >= 0
+
+
+def _end_group_rank(rank, n, store):
+    pdist.initialize("cpu", init_method=f"file://{store}", world_size=n,
+                     rank=rank)
+    mesh = pdist.make_gop_mesh("cpu")
+    x = torch.full((2, 4), rank, dtype=torch.int16)
+    got = ptransform._shift(x, mesh, 1)
+    blobs = pdist._allgather_indexed_bytes([(rank, bytes([rank]))], n, mesh)
+    pdist.end_group()
+    pdist.end_group()                 # a second call does nothing
+    return (None if got is None else int(got[0, 0]), blobs,
+            torch.distributed.is_initialized())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_end_group_ends_every_rank(n):
+    """Every rank leaves its group through ``end_group`` and exits 0
+    (``run_ranks`` raises on any other exit)."""
+    ranks = pdist.run_ranks(_end_group_rank, n, timeout=120)
+    for r, (got, blobs, still) in enumerate(ranks):
+        assert got == (None if r == 0 else r - 1)
+        assert blobs == [bytes([i]) for i in range(n)]
+        assert not still
