@@ -101,9 +101,22 @@ Phases, one line each; any failure exits non-zero before the last line:
    one 4-GOP encode and decode through the graphs equal those of the
    eager programs (and the bytes), ``expand_gops`` in its two threads
    equals the serial ``expand``, and the decode's device busy share and
-   host launches under ``torch.profiler``, replayed and eager in turns.
+   host launches under ``torch.profiler``, replayed and eager in turns;
+10. the JAX contract and the cold start at the flagship size: (a) each
+   function of the port that shares a name with a JAX function whose
+   arguments or shapes once differed (``histogram_entropy``,
+   ``predict_frame``, ``refs_to_444``, ``predict_frames_subpixel``,
+   ``decorrelate_from_pred``, ``correlate_from_pred``,
+   ``residue_to_444``, ``gather_block_patches``, ``blocks_to_image``,
+   ``encode_frames_select_sparse``, ``decode_frames``), called the JAX
+   way on the card, equal to the CPU call (the float32 entropy within
+   rtol 1e-6), ``predict_frame`` through K2; (b) the first flagship
+   GOP's encode and decode walls after ``graphs.clear()``, without and
+   with ``api.prewarm`` / ``prewarm_decode`` in turns, with the graphs
+   that GOP captured (none after a prewarm, or the run fails); (c)
+   ``api.compress(video, cfg)`` without ``device`` runs on the card.
 
-The whole run takes 190-280 s on an H100 (phase 9 about 36 s).
+The whole run takes 190-340 s on an H100 (phase 9 about 36 s).
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main paths: phase 4 for K1-K3, phase
@@ -480,12 +493,12 @@ def _k2_subpixel_calls(dev, seed=2):
                            generator=gen, device=dev, dtype=torch.int32)
         got = cuda_mc.predict(prev, nxt, mv, bs, 4 * sr)
         n = 2 if a == 3 else 8
-        err = _max_err(got[:n], predict.predict_frame(
+        err = _max_err(got[:n], predict.predict_frames_plain(
             prev[:n], nxt[:n], mv[:n], bs, 4 * sr))
         worst = max(worst, err)
         ms = _cuda_ms(lambda: cuda_mc.predict(prev, nxt, mv, bs, 4 * sr),
                       reps=3, batch=5)
-        plain = _cuda_ms(lambda: predict.predict_frame(
+        plain = _cuda_ms(lambda: predict.predict_frames_plain(
             prev[:n], nxt[:n], mv[:n], bs, 4 * sr), reps=1, batch=1,
             warmup=0)
         bound = _bound(_nbytes(prev, nxt, mv, got), 4 * got.numel())
@@ -525,7 +538,7 @@ def _ss_decode_calls(dev, seed=3):
             args = (prev[:P], nxt[:P], mv, bs, 4 * sr)
             k2 = cuda_mc.predict(*args)
             worst["mc_predict"] = max(worst["mc_predict"], _max_err(
-                k2, predict.predict_frame(*args)))
+                k2, predict.predict_frames_plain(*args)))
             k3 = cuda_mc.update2(contrib[:P], mv, bs, sr)
             want = torch.stack([update._update_sums(
                 contrib[:P], mv[:, i, 0], mv[:, i, 1], bs, sr)
@@ -611,11 +624,12 @@ def _mc_parity(label, prev, nxt, contrib, mv, bs, sr):
     from qsvc_tpu_torch.ops import cuda_mc
     border = 4 * sr
     k2 = cuda_mc.predict(prev, nxt, mv, bs, border)
+    plain = functools.partial(predict.predict_frames_plain, prev, nxt, mv,
+                              bs, border)
     rows = {"mc_predict": (
-        _max_err(k2, predict.predict_frame(prev, nxt, mv, bs, border)),
+        _max_err(k2, plain()),
         _cuda_ms(lambda: cuda_mc.predict(prev, nxt, mv, bs, border)),
-        _cuda_ms(lambda: predict.predict_frame(prev, nxt, mv, bs, border),
-                 reps=3, batch=2),
+        _cuda_ms(plain, reps=3, batch=2),
         # add, halve, clip: a few operations per output
         _bound(_nbytes(prev, nxt, mv, k2), 4 * k2.numel()))}
 
@@ -1255,7 +1269,8 @@ def _rest_pair_steps(dev, vid):
 
     def steps(yd, ud, vd):
         mv = me.estimate_pair(yd[1], yd[0], yd[2], bs, sr)
-        refs = predict.refs_to_444(yd[0::2], ud[0::2], vd[0::2])
+        refs = predict.refs_to_444_batch((yd[0::2], ud[0::2],
+                                          vd[0::2]))
         res = predict.decorrelate_pair((yd[1], ud[1], vd[1]), refs[0],
                                        refs[1], mv, bs, sr)
         back = predict.correlate_pair(res[:3], refs[0], refs[1], res.mv_out,
@@ -1666,6 +1681,179 @@ def phase_graphs(dev):
           f"{time.time() - t_start:.3f} s", flush=True)
 
 
+def _contract_calls(dev, vid):
+    """Each function that keeps the JAX contract, called the JAX way at
+    the flagship's width, on the card (``dev``) and on the CPU with the
+    same inputs: {name: (card result, CPU result)}, and the K2 launches
+    of ``predict_frame`` and ``predict_frames_subpixel`` on the card."""
+    from qsvc_tpu_torch.codec import frame_codec
+    from qsvc_tpu_torch.mctf import predict, update
+    from qsvc_tpu_torch.ops import blocks, border, cuda_lib, entropy
+    rng = np.random.default_rng(10)
+    y, u, v = (torch.from_numpy(p[:3].astype(np.int16)) for p in
+               vid.planes())
+    by, bx = FLAGSHIP_H // FLAGSHIP_BS, FLAGSHIP_W // FLAGSHIP_BS
+    # level 1's search range 4: vectors up to 5, edge padding 16; the
+    # sub-pixel prediction's (a = 1) in half pixels
+    mv = torch.from_numpy(rng.integers(-5, 6, (2, 2, by, bx))
+                          .astype(np.int32))
+    mv_half = torch.from_numpy(rng.integers(-9, 10, (1, 2, 2, by, bx))
+                               .astype(np.int32))
+    pad = 4 * 4
+    sy = (torch.arange(by)[:, None] * FLAGSHIP_BS + mv[0, 0] + pad)
+    sx = (torch.arange(bx)[None, :] * FLAGSHIP_BS + mv[0, 1] + pad)
+    planes = np.ascontiguousarray(vid.y[:1])
+    efs = frame_codec.encode_frames(planes, 4, True, 0.125, 64, 0.0, "bp",
+                                    device=dev)
+    thr = np.zeros(1)
+
+    def calls(d):
+        def on(x):
+            return x.to(d)
+        out = {}
+        frames = [tuple(on(p[i]) for p in (y, u, v)) for i in range(3)]
+        out["histogram_entropy"] = entropy.histogram_entropy(frames[0][0])
+        prev = predict.refs_to_444(frames[0])
+        nxt = predict.refs_to_444(frames[2])
+        out["refs_to_444"] = prev
+        out["predict_frame"] = pred = predict.predict_frame(
+            prev, nxt, on(mv), FLAGSHIP_BS, pad)
+        out["predict_frames_subpixel"] = predict.predict_frames_subpixel(
+            prev[None], nxt[None], on(mv_half), FLAGSHIP_BS, 4, 1)
+        out["decorrelate_from_pred"] = res = predict.decorrelate_from_pred(
+            frames[1], pred, on(mv))
+        out["correlate_from_pred"] = predict.correlate_from_pred(
+            res[:3], pred, res.is_B)
+        out["residue_to_444"] = update.residue_to_444(res[:3], res.is_B)
+        patches = blocks.gather_block_patches(
+            border.pad_edge(prev, pad), on(sy), on(sx), FLAGSHIP_BS,
+            FLAGSHIP_BS)
+        out["gather_block_patches"] = patches
+        out["blocks_to_image"] = blocks.blocks_to_image(patches)
+        pend = frame_codec.encode_frames_dispatch_sparse(
+            on(torch.from_numpy(planes)), 4, True, 0.125, 64, thr)
+        sel = frame_codec.encode_frames_select_sparse(pend, thr)
+        out["encode_frames_select_sparse"] = (
+            sel[0], sel[1], torch.from_numpy(sel[2]),
+            torch.from_numpy(sel[3][2]))
+        out["decode_frames"] = torch.from_numpy(
+            frame_codec.decode_frames(efs, device=d))
+        return out
+    cuda_lib.reset_launches()
+    card = calls(dev)
+    k2 = cuda_lib.launches["mc_predict"]
+    cpu = calls(torch.device("cpu"))
+    return {k: (card[k], cpu[k]) for k in card}, k2
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [leaf for item in x for leaf in _leaves(item)]
+    return [x]
+
+
+def phase_contract(dev):
+    """10: (a) each function that keeps the JAX contract, called the JAX
+    way at the flagship's width on the card, equal to the CPU call (bit
+    for bit; ``histogram_entropy``'s float32 entropy within rtol 1e-6,
+    with its difference printed), ``predict_frame`` through K2; (b) the
+    cold start of the flagship's first GOP: encode (``compress_chunks``)
+    and decode (``expand_gops``) walls after ``graphs.clear()``, without
+    and with ``prewarm`` / ``prewarm_decode``, in turns, with the
+    prewarms' seconds and the graphs each first GOP captured (0 after a
+    prewarm, or the phase fails); (c) ``api.compress(video, cfg)`` without
+    ``device`` runs on the card: it launches the kernels and gives the
+    bytes of the card's ``compress_chunks``."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec.codestream import VideoStream
+    from qsvc_tpu_torch.io import Video, synthetic_video
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.utils import graphs
+
+    t_start = time.time()
+    cfg = _flagship_cfg()
+    gop_cfg = cfg.replace(GOPs=1)
+    vid = synthetic_video(gop_cfg.pictures, FLAGSHIP_H, FLAGSHIP_W, seed=0)
+
+    results, k2 = _contract_calls(dev, vid)
+    diffs = {}
+    for name, (card, cpu) in results.items():
+        for a, b in zip(_leaves(card), _leaves(cpu)):
+            if isinstance(a, torch.Tensor):
+                a = a.cpu()
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise SystemExit(f"phase 10: {name} on the card gives "
+                                     f"{a.dtype} {tuple(a.shape)}, on the "
+                                     f"CPU {b.dtype} {tuple(b.shape)}")
+                if name == "histogram_entropy":
+                    diffs[name] = float((a - b).abs())
+                    ok = diffs[name] <= 1e-6 * float(b.abs())
+                else:
+                    ok = torch.equal(a, b)
+            else:
+                ok = a == b
+            if not ok:
+                raise SystemExit(f"phase 10: {name} on the card differs "
+                                 f"from the CPU")
+    if k2 < 2:
+        raise SystemExit(f"phase 10: predict_frame and "
+                         f"predict_frames_subpixel launched K2 {k2} times")
+    print(f"  10a JAX-contract functions at {FLAGSHIP_W}x{FLAGSHIP_H}, "
+          f"card == CPU: "
+          f"{', '.join(sorted(results))}; bit for bit but "
+          f"histogram_entropy (|card - CPU| "
+          f"{diffs['histogram_entropy']:.3g} bits); K2 launches "
+          f"{k2}", flush=True)
+
+    S = gop_cfg.gop_size
+    staged = Video(*(torch.from_numpy(p[:S + 1]).to(dev)
+                     for p in vid.planes()))
+    rows = []
+    for warm in (False, True, False, True):
+        graphs.clear()
+        torch.cuda.empty_cache()
+        pre_e = (api.prewarm(cfg, reversible=False, device=dev) if warm
+                 else 0.0)
+        n0 = len(graphs.stats())
+        streams, enc_s = _timed(lambda: api.compress_chunks(
+            [staged], gop_cfg, reversible=False, device=dev))
+        new_e = len(graphs.stats()) - n0
+        parsed = [VideoStream.from_bytes(s.to_bytes()) for s in streams]
+        graphs.clear()
+        torch.cuda.empty_cache()
+        pre_d = (api.prewarm_decode(parsed[0].cfg, reversible=False,
+                                    delta=parsed[0].delta or None,
+                                    device=dev) if warm else 0.0)
+        n0 = len(graphs.stats())
+        _, dec_s = _timed(lambda: api.expand_gops(parsed, device=dev))
+        new_d = len(graphs.stats()) - n0
+        if warm and (new_e or new_d):
+            raise SystemExit(f"phase 10: the first GOP after prewarm "
+                             f"captured {new_e} encode and {new_d} decode "
+                             f"graphs")
+        rows.append(f"{'with' if warm else 'without'} prewarm: encode "
+                    f"{enc_s:.3f} s ({new_e} graphs captured; prewarm "
+                    f"{pre_e:.3f} s), decode {dec_s:.3f} s ({new_d} "
+                    f"captured; prewarm_decode {pre_d:.3f} s)")
+    print(f"  10b first flagship GOP after graphs.clear(), in turns: "
+          f"{'; '.join(rows)}", flush=True)
+
+    lossy = streams[0].to_bytes()
+    cuda_lib.reset_launches()
+    data = api.compress(vid, gop_cfg, reversible=False).to_bytes()
+    counts = dict(cuda_lib.launches)
+    if data != lossy or not all(counts.get(k) for k in SEQUENTIAL_KERNELS):
+        raise SystemExit(f"phase 10: api.compress(video, cfg) without a "
+                         f"device gave {len(data)} bytes (the card's "
+                         f"compress_chunks {len(lossy)}), launches "
+                         f"{counts}")
+    print(f"  10c api.compress(video, cfg) without a device: on the card, "
+          f"launches {counts}, == compress_chunks on the card "
+          f"({len(data)} bytes)", flush=True)
+    print(f"phase 10 JAX contract and cold start: ok; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1686,6 +1874,7 @@ def main() -> int:
         if name in counts:
             counts[name] += n
     phase_graphs(dev)
+    phase_contract(dev)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

@@ -1,14 +1,17 @@
-"""Top-level codec API: compress / expand on an explicit torch device.
+"""Top-level codec API: compress / expand on a torch device.
 
-Port of ``qsvc_tpu/api.py`` (the compile-cache prewarm has no
-counterpart).  Every entry point takes a keyword-only ``device``: numpy
-frames with ``device="cuda"`` run the MCTF and texture transforms on the
-card through the kernels of ``csrc/``, ``device="cpu"`` runs their plain
-PyTorch versions.  Where the JAX package runs a jitted program, the
+Port of ``qsvc_tpu/api.py``.  Every entry point takes the JAX function's
+arguments and a keyword-only ``device``, the card (``"cuda"``) unless
+the caller asks for the CPU: numpy frames on the card run the MCTF and
+texture transforms through the kernels of ``csrc/``, ``device="cpu"``
+runs their plain PyTorch versions; there is no fallback from one to the
+other.  Where the JAX package runs a jitted program, the
 port runs its captured counterpart (``transform.analyze_jit`` /
 ``synthesize_jit``, ``motion_coding.decorrelate_jit`` /
 ``correlate_jit``, the texture stages of ``frame_codec``): a CUDA graph
-per shape on the card, the eager functions on the CPU.  Frames already
+per shape on the card, the eager functions on the CPU, and
+:func:`prewarm` / :func:`prewarm_decode` capture them ahead of a
+configuration's first GOP, as the JAX ones compile.  Frames already
 on the device (the staged mode) are used in place.  EBCOT
 entropy coding runs on the host in the native coder; the streams are
 byte-identical to the JAX package's wherever the arithmetic is integer.
@@ -20,17 +23,19 @@ still runs on ``device``.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .codec import backends, codestream, frame_codec
+from .codec import backends, codestream, fast, frame_codec
 from .codec.codestream import LevelSection, VideoStream
 from .codec.frame_codec import slope_to_threshold
 from .config import CodecConfig
 from .io.yuv import Video
 from .mctf import motion_coding, transform
+from .ops import cuda_lib
 from .utils import trace
 
 
@@ -62,7 +67,7 @@ def _decode_plane_set(frames: List[Dict[str, frame_codec.EncodedFrame]],
         return dec("y"), dec("u"), dec("v")
     return tuple(frame_codec.decode_frames([fr[c] for fr in frames],
                                            threshold, discard_levels,
-                                           device=device)
+                                           to_host=False, device=device)
                  for c in ("y", "u", "v"))
 
 
@@ -133,7 +138,8 @@ def _pad_to_grid(video: Video, cfg: CodecConfig
 def compress_dispatch(video: Video, cfg: CodecConfig,
                       reversible: bool = True,
                       delta: Optional[float] = None,
-                      lossless: Optional[bool] = None, *, device) -> dict:
+                      lossless: Optional[bool] = None, *,
+                      device="cuda") -> dict:
     """Queue the device side of an encode: upload, MCTF analyze, the
     texture DWT+quantize+tile+R-D simulation over one luma and one chroma
     stack, and the motion-field decorrelation.  Nothing waits for the
@@ -212,9 +218,12 @@ def compress_finish_stats(pending: dict) -> dict:
         stats_c = tuple(_host(t) for t in pend_c[2:5])
         residues = [_host(r) for r in pending["residues_dev"]]
     pending = dict(pending)
+    coder = pending["coder"]
     pending["_sel"] = (
-        frame_codec.encode_frames_select_sparse(pend_l, stats=stats_l),
-        frame_codec.encode_frames_select_sparse(pend_c, stats=stats_c))
+        frame_codec.encode_frames_select_sparse(
+            pend_l, pending["luma_thr"], coder, stats_l),
+        frame_codec.encode_frames_select_sparse(
+            pend_c, pending["chroma_thr"], coder, stats_c))
     pending["_residues"] = residues
     return pending
 
@@ -280,8 +289,97 @@ def compress_finish(pending: dict) -> VideoStream:
                        true_frames=pending["true_frames"])
 
 
+def _load_libraries(device) -> None:
+    """Load, building at first use, the kernels of ``csrc/`` (for a CUDA
+    ``device``) and the native coder."""
+    if torch.device(device).type == "cuda":
+        cuda_lib.load()
+    fast.build_seconds()
+
+
+def prewarm(cfg: CodecConfig, reversible: bool = False,
+            delta: Optional[float] = None,
+            lossless: Optional[bool] = None, *, device="cuda") -> float:
+    """Pay ahead what the first GOP of ``cfg`` would pay on ``device``:
+    load (building at first use) the kernels and the native coder, and
+    run the encode's captured programs once, on a zero GOP of the
+    production shapes dispatched as :func:`compress_chunks` dispatches
+    every GOP (``cfg.replace(GOPs=1)``), so that each one's CUDA graph is
+    captured: ``transform.analyze_jit``, ``frame_codec._encode_device_jit``
+    for the luma and the chroma stack, ``motion_coding.decorrelate_jit``.
+    On the CPU the same programs run eagerly, as the JAX package
+    compiles them for the CPU.  Returns the seconds taken.
+
+    The JAX function compiles the programs in four threads; a capture
+    holds its device's lock, so here they run one after another."""
+    t0 = time.perf_counter()
+    with trace.stage("prewarm"):
+        _load_libraries(device)
+        gop_cfg = cfg.replace(GOPs=1)
+        n, H, W = gop_cfg.pictures, gop_cfg.pixels_in_y, gop_cfg.pixels_in_x
+        zero = Video(np.zeros((n, H, W), np.uint8),
+                     np.zeros((n, H // 2, W // 2), np.uint8),
+                     np.zeros((n, H // 2, W // 2), np.uint8))
+        compress_finish_stats(compress_dispatch(
+            zero, gop_cfg, reversible, delta, lossless, device=device))
+    return time.perf_counter() - t0
+
+
+def prewarm_decode(cfg: CodecConfig, reversible: bool = False,
+                   delta: Optional[float] = None,
+                   lossless: Optional[bool] = None, *,
+                   device="cuda") -> float:
+    """The decode's mirror of :func:`prewarm`: decode on ``device`` a
+    zero GOP stream of ``cfg`` (every code-block empty, every frame a B
+    frame with zero motion) through :func:`expand`, so that its captured
+    programs are: ``frame_codec._dequant_idwt_jit`` for each plane-set
+    geometry of a GOP, ``motion_coding.correlate_jit`` and
+    ``transform.synthesize_jit``.  The programs are keyed by the
+    configuration, so ``cfg`` is the streams' own (``streams[0].cfg``).
+    The eager tile scatter (``frame_codec._scatter_tiles``) takes as many
+    tiles as a GOP has coded code-blocks, a count that changes with every
+    GOP, and is not warmed.  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    with trace.stage("prewarm_decode"):
+        _load_libraries(device)
+        gop_cfg = cfg.replace(GOPs=1)
+        delta, _, coder = _operating_point(gop_cfg, reversible, delta,
+                                           lossless)
+        expand(_zero_stream(gop_cfg, reversible, delta, coder),
+               to_host=False, device=device)
+    return time.perf_counter() - t0
+
+
+def _zero_stream(cfg: CodecConfig, reversible: bool, delta: float,
+                 coder: str) -> VideoStream:
+    """The one-GOP stream of ``cfg`` that :func:`prewarm_decode` decodes:
+    empty code-blocks, B frames, zero motion."""
+    H, W = cfg.pixels_in_y, cfg.pixels_in_x
+    levels, cb = cfg.SRLs - 1, cfg.codeblock_size
+
+    def plane_set(n):
+        def frame(h, w):
+            return frame_codec.EncodedFrame(
+                h, w, levels, reversible, delta, cb,
+                frame_codec._empty_blocks(h, w, levels, cb), coder)
+        return [{"y": frame(H, W), "u": frame(H // 2, W // 2),
+                 "v": frame(H // 2, W // 2)} for _ in range(n)]
+
+    sched = cfg.level_schedule()
+    sections = []
+    for lp in sched:
+        p = lp.pictures // 2
+        mv = np.zeros((2, 2, H // lp.block_size, W // lp.block_size),
+                      np.int32)
+        sections.append(LevelSection(
+            plane_set(p), codestream.encode_motion_fields([mv] * p),
+            b"B" * p))
+    n_low = (sched[-1].pictures + 1) // 2 if sched else cfg.pictures
+    return VideoStream(cfg, reversible, delta, plane_set(n_low), sections)
+
+
 def _compress_with_backend(video: Video, cfg: CodecConfig, *,
-                           device) -> VideoStream:
+                           device="cuda") -> VideoStream:
     """Encode with an alternative texture backend (codec/backends.py):
     the MCTF on ``device`` as usual, then each subband stack comes to the
     host once and every frame plane is coded by the selected per-plane
@@ -332,7 +430,7 @@ def _compress_with_backend(video: Video, cfg: CodecConfig, *,
 
 def compress(video: Video, cfg: CodecConfig, reversible: bool = True,
              delta: Optional[float] = None, lossless: Optional[bool] = None,
-             *, device) -> VideoStream:
+             *, device="cuda") -> VideoStream:
     """Encode a video to a :class:`VideoStream` on ``device``.
 
     ``reversible``: integer 5/3 texture path; with ``lossless=True``
@@ -349,7 +447,8 @@ def compress(video: Video, cfg: CodecConfig, reversible: bool = True,
 def compress_gops(video: Video, cfg: CodecConfig, reversible: bool = True,
                   delta: Optional[float] = None,
                   lossless: Optional[bool] = None,
-                  window: int = 2, *, device) -> List[VideoStream]:
+                  window: int = 2, *, device="cuda"
+                  ) -> List[VideoStream]:
     """Streaming encode: one self-contained :class:`VideoStream` per GOP
     (GOPs share their boundary frame), pipelined ``window`` GOPs deep."""
     S = cfg.gop_size
@@ -363,7 +462,7 @@ def compress_gops(video: Video, cfg: CodecConfig, reversible: bool = True,
 def compress_chunks(chunks, gop_cfg: CodecConfig,
                     reversible: bool = True, delta: Optional[float] = None,
                     lossless: Optional[bool] = None,
-                    window: int = 2, progress=None, *, device
+                    window: int = 2, progress=None, *, device="cuda"
                     ) -> List[VideoStream]:
     """Pipelined encode of a list of (already sliced) GOP chunks.
 
@@ -401,7 +500,8 @@ def compress_chunks(chunks, gop_cfg: CodecConfig,
     return out
 
 
-def expand_gops(streams: List[VideoStream], *, device, **kw) -> Video:
+def expand_gops(streams: List[VideoStream], *, device="cuda", **kw
+                ) -> Video:
     """Decode a per-GOP stream list back to one host sequence (drops the
     duplicated shared boundary frames); two GOPs decode concurrently."""
     from concurrent.futures import ThreadPoolExecutor
@@ -415,7 +515,8 @@ def expand_gops(streams: List[VideoStream], *, device, **kw) -> Video:
 
 
 def expand(vs: VideoStream, threshold: float = 0.0,
-           discard_TRLs: int = 0, to_host: bool = True, *, device) -> Video:
+           discard_TRLs: int = 0, to_host: bool = True, *,
+           device="cuda") -> Video:
     """Decode a :class:`VideoStream` on ``device``.
 
     ``threshold``: extra decode-time slope truncation (QS); ``discard_TRLs``:

@@ -232,6 +232,9 @@ def main(argv=None) -> int:
             S = cfg.gop_size
             G = (max(1, -(-(vid.frames - 1) // S)) if cfg.TRLs > 1
                  else cfg.GOPs)
+            if G >= 2:
+                # capture the GOP's device programs before the first GOP
+                api.prewarm(cfg, reversible=args.lossless, device=dev)
 
             def report(g, nbytes, cached):
                 el = time.time() - t0
@@ -277,12 +280,18 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "expand":
-        from .api import expand, expand_gops
+        from .api import expand, expand_gops, prewarm_decode
         from .codec.frame_codec import slope_to_threshold
         dev = _device(args)
         streams = _read_streams(args.input)
         thr = slope_to_threshold(args.quantization) if args.quantization else 0.0
         t0 = time.time()
+        if (len(streams) > 1 and not args.discard_TRLs
+                and streams[0].cfg.texture_backend == "internal"):
+            # capture the decode's programs before the first GOP
+            prewarm_decode(streams[0].cfg,
+                           reversible=streams[0].reversible,
+                           delta=streams[0].delta or None, device=dev)
         if len(streams) > 1:
             vid = expand_gops(streams, threshold=thr,
                               discard_TRLs=args.discard_TRLs, device=dev)

@@ -237,7 +237,7 @@ def _ltw_encode(plane: np.ndarray, quality: float, *, device) -> bytes:
 def _ltw_decode(data: bytes, H: int, W: int, *, device) -> np.ndarray:
     from . import codestream, frame_codec
     ef = codestream._read_frame(codestream._Reader(data))
-    rec = frame_codec.decode_frame(ef, device=device).cpu().numpy()
+    rec = frame_codec.decode_frame(ef, device=device)
     assert rec.shape == (H, W), (rec.shape, H, W)
     return np.clip(rec, 0, 255).astype(np.uint8)
 

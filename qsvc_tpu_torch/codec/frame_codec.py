@@ -366,13 +366,19 @@ def encode_frames_dispatch_sparse(planes: torch.Tensor, levels: int,
             float(delta), cb)
 
 
-def encode_frames_select_sparse(pending, stats):
+def encode_frames_select_sparse(pending, min_threshold, coder: str = "bp",
+                                stats=None):
     """Stage 2: turn the per-tile stats into host bookkeeping and slice
     the kept prefix of the compacted stack.
 
-    ``stats``: the host values of the pending ``(maxabs, keep, ovf)``
-    (the caller fetches them for both stacks at once)."""
-    (pl, compact, _maxabs, _keep, _ovf, levels, reversible, d, cb) = pending
+    ``min_threshold`` and ``coder`` are the JAX function's (the slope
+    floor was applied at dispatch).  ``stats``: the host values of the
+    pending ``(maxabs, keep, ovf)`` if the caller has fetched them (the
+    pipelined encode fetches both stacks' at once); None fetches them
+    here."""
+    (pl, compact, maxabs, keep, ovf, levels, reversible, d, cb) = pending
+    if stats is None:
+        stats = tuple(t.cpu().numpy() for t in (maxabs, keep, ovf))
     maxabs_h, keep_h, ovf_h = stats
     if bool(ovf_h):
         dt = torch.tensor(d, dtype=torch.float32, device=pl.device)
@@ -435,7 +441,7 @@ def encode_frames_finish_sparse(selected, H: int, W: int,
 
 
 def encode_frames_dispatch(planes, levels: int, reversible: bool,
-                           delta: float, *, device):
+                           delta: float, *, device="cuda"):
     """Stage 1 of the dense encode: the DWT + quantization of a stack of
     planes (N, H, W), a numpy array or a tensor, queued on ``device``
     without waiting for it.  Returns an opaque pending handle for
@@ -506,8 +512,8 @@ def _scatter_tiles(tiles: torch.Tensor, pos: torch.Tensor,
 
 def encode_frames(planes, levels: int, reversible: bool = True,
                   delta: float = 0.125, codeblock_size: int = 64,
-                  min_threshold: float = 0.0, coder: str = "mq", *, device
-                  ) -> List[EncodedFrame]:
+                  min_threshold: float = 0.0, coder: str = "mq", *,
+                  device="cuda") -> List[EncodedFrame]:
     """Encode a stack of component planes (N, H, W), a numpy array or a
     tensor, on ``device``: one DWT+quantize+R-D pass, one native batch
     over the kept code-blocks of all frames.  The serial wrapper of the
@@ -518,8 +524,7 @@ def encode_frames(planes, levels: int, reversible: bool = True,
     pending = encode_frames_dispatch_sparse(planes, levels, reversible,
                                             delta, codeblock_size,
                                             min_threshold, coder)
-    stats = tuple(t.cpu().numpy() for t in pending[2:5])
-    selected = encode_frames_select_sparse(pending, stats)
+    selected = encode_frames_select_sparse(pending, min_threshold, coder)
     if isinstance(selected[1], torch.Tensor):
         selected = selected[:1] + (selected[1].cpu().numpy(),) + selected[2:]
     H, W = planes.shape[1], planes.shape[2]
@@ -527,10 +532,13 @@ def encode_frames(planes, levels: int, reversible: bool = True,
 
 
 def decode_frames(efs: List[EncodedFrame], threshold: float = 0.0,
-                  discard_levels: int = 0, *, device) -> torch.Tensor:
+                  discard_levels: int = 0, to_host: bool = True, *,
+                  device="cuda"):
     """Decode a stack of same-geometry frames with ONE native batch
     entropy decode and ONE dequantize+inverse-DWT pass on ``device``;
-    returns (N, H', W') int32 on ``device``.
+    returns (N, H', W') int32: a host numpy array, or with
+    ``to_host=False`` a tensor on ``device`` (the decode path's inverse
+    MCTF takes it as it is).
 
     ``discard_levels = d`` drops the ``d`` finest resolution levels (SS):
     their detail blocks are skipped and the result has the geometry of
@@ -541,6 +549,8 @@ def decode_frames(efs: List[EncodedFrame], threshold: float = 0.0,
     planes are almost all zeros); otherwise the planes are decoded into
     a dense host stack and uploaded whole."""
     if not efs:
+        if to_host:
+            return np.zeros((0, 0, 0), np.int32)
         return torch.zeros((0, 0, 0), dtype=torch.int32, device=device)
     ef0 = efs[0]
     H, W, levels = ef0.H, ef0.W, ef0.levels
@@ -593,14 +603,15 @@ def decode_frames(efs: List[EncodedFrame], threshold: float = 0.0,
         packed = torch.from_numpy(
             np.ascontiguousarray(dense[:, :Hd, :Wd])).to(device)
     with trace.stage("decode.idwt_dispatch"):
-        return _dequant_idwt_jit(packed, levels - discard_levels,
-                                 ef0.reversible, d)
+        out = _dequant_idwt_jit(packed, levels - discard_levels,
+                                ef0.reversible, d)
+    return out.cpu().numpy() if to_host else out
 
 
 def encode_frame(plane, levels: int, reversible: bool = True,
                  delta: float = 0.125, codeblock_size: int = 64,
-                 min_threshold: float = 0.0, coder: str = "mq", *, device
-                 ) -> EncodedFrame:
+                 min_threshold: float = 0.0, coder: str = "mq", *,
+                 device="cuda") -> EncodedFrame:
     """Encode one component plane (uint8-range values) on ``device``.
 
     ``min_threshold``: weighted-slope floor — planes whose distortion-length
@@ -613,9 +624,9 @@ def encode_frame(plane, levels: int, reversible: bool = True,
 
 
 def decode_frame(ef: EncodedFrame, threshold: float = 0.0,
-                 discard_levels: int = 0, *, device) -> torch.Tensor:
+                 discard_levels: int = 0, *, device="cuda") -> np.ndarray:
     """Decode one frame on ``device``, optionally truncating by slope
     threshold (QS) and discarding the finest ``discard_levels``
     resolution levels (SS); with ``discard_levels = d`` the (H', W') int32
-    plane has the dimensions of the d-times-reduced image."""
+    host plane has the dimensions of the d-times-reduced image."""
     return decode_frames([ef], threshold, discard_levels, device=device)[0]

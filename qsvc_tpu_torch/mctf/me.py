@@ -76,13 +76,13 @@ def _refine_level(preds: torch.Tensor, prevs: torch.Tensor,
                 _window_rows(base_x + off_x, nx, Bx, bs, lo, w))
 
     zero = torch.zeros((P, By, Bx), dtype=torch.int64, device=dev)
-    predw = blocks.gather_block_patches(preds, *rows_cols(zero, zero, border,
-                                                          win))
+    predw = blocks.gather_block_rows(preds, *rows_cols(zero, zero, border,
+                                                       win))
     lo = border + 1 + max_mv
-    patches_p = blocks.gather_block_patches(
+    patches_p = blocks.gather_block_rows(
         prevs, *rows_cols(mv[:, 0, 0] + max_mv, mv[:, 0, 1] + max_mv, lo,
                           win + 2))
-    patches_n = blocks.gather_block_patches(
+    patches_n = blocks.gather_block_rows(
         nexts, *rows_cols(mv[:, 1, 0] + max_mv, mv[:, 1, 1] + max_mv, lo,
                           win + 2))
 

@@ -44,7 +44,7 @@ class MCTFStream(NamedTuple):
     levels: Tuple[LevelData, ...]   # level 1 (finest) .. TRLs-1
 
     @classmethod
-    def from_numpy(cls, stream, *, device) -> "MCTFStream":
+    def from_numpy(cls, stream, *, device="cuda") -> "MCTFStream":
         """Convert any stream with these fields (numpy arrays, or the JAX
         package's ``MCTFStream``) into torch tensors on ``device``."""
         def t(a):
@@ -87,17 +87,17 @@ def _analyze_level(low: Planes, block_size: int, search_range: int,
 
     mv = me.estimate_sequence(ey, oy, block_size, search_range,
                               cfg.border_size, cfg.subpixel_accuracy)
-    evens444 = predict.refs_to_444(ey, eu, ev)
-    preds = predict.predict_frames_subpixel(
+    evens444 = predict.refs_to_444_batch((ey, eu, ev))
+    preds = predict.predict_frames_subpixel_evens(
         evens444, mv, block_size, search_range, cfg.subpixel_accuracy,
         cfg.block_overlaping)
-    dec = predict.decorrelate_from_pred((oy, ou, ov), preds, mv,
-                                        cfg.always_B)
+    dec = predict.decorrelate_from_preds((oy, ou, ov), preds, mv,
+                                         cfg.always_B)
     del preds
 
     if cfg.update_factor != 0.0:
-        res444 = update.residue_to_444((dec.high_y, dec.high_u, dec.high_v),
-                                       dec.is_B)
+        res444 = update.residues_to_444(
+            (dec.high_y, dec.high_u, dec.high_v), dec.is_B)
         # the update moves whole pixels: sub-pixel vectors shift down by
         # the accuracy (arithmetic, so floor), here and not in
         # update_evens, so that the sharded MCTF's update gets it too
@@ -116,21 +116,21 @@ def _analyze_level(low: Planes, block_size: int, search_range: int,
 def _synthesize_level(low: Planes, lev: LevelData, block_size: int,
                       search_range: int, cfg: CodecConfig,
                       update_evens=_update_evens) -> Planes:
-    low444 = predict.refs_to_444(*low)
+    low444 = predict.refs_to_444_batch(low)
     if cfg.update_factor != 0.0:
-        res444 = update.residue_to_444((lev.high_y, lev.high_u, lev.high_v),
-                                       lev.is_B)
+        res444 = update.residues_to_444(
+            (lev.high_y, lev.high_u, lev.high_v), lev.is_B)
         ev444 = update_evens(low444, res444,
                              lev.mv >> cfg.subpixel_accuracy, block_size,
                              search_range, cfg, -1)
     else:
         ev444 = low444
 
-    preds = predict.predict_frames_subpixel(
+    preds = predict.predict_frames_subpixel_evens(
         ev444, lev.mv, block_size, search_range, cfg.subpixel_accuracy,
         cfg.block_overlaping)
-    odd = predict.correlate_from_pred((lev.high_y, lev.high_u, lev.high_v),
-                                      preds, lev.is_B)
+    odd = predict.correlate_from_preds(
+        (lev.high_y, lev.high_u, lev.high_v), preds, lev.is_B)
     even = (ev444[:, 0], predict.downsample_chroma(ev444[:, 1]),
             predict.downsample_chroma(ev444[:, 2]))
 

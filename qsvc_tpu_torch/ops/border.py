@@ -29,7 +29,7 @@ def pad_edge(x: torch.Tensor, border: int) -> torch.Tensor:
 
 
 def block_index_grids(blocks_y: int, blocks_x: int, win: int,
-                      block_size: int, offset: int, *, device
+                      block_size: int, offset: int, *, device="cuda"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-block pixel coordinate grids of a (win x win) window anchored at
     each block's top-left corner minus ``offset``.

@@ -4,7 +4,8 @@ and K4 (MC update, one direction) in ``csrc/mc.cu``, replacing
 ``update_pallas``.
 
 CUDA tensors only; anything else raises.  The plain PyTorch versions are
-``mctf/predict.py::predict_frame`` and ``mctf/update.py::_update_field``,
+``mctf/predict.py::predict_frames_plain`` and
+``mctf/update.py::_update_field``,
 which ``predict_frames_batch`` / ``update_fields_batch2`` /
 ``update_fields_batch`` use for CPU tensors.
 

@@ -12,10 +12,17 @@ import torch
 
 
 def histogram_entropy(values: torch.Tensor, bins: int = 256) -> torch.Tensor:
+    """Entropy (bits/symbol) of the histogram of all of ``values``, a 0-dim
+    float32 tensor (the JAX function's contract)."""
+    return histogram_entropy_rows(values.reshape(1, -1), bins)[0]
+
+
+def histogram_entropy_rows(values: torch.Tensor, bins: int = 256
+                           ) -> torch.Tensor:
     """Entropy (bits/symbol) of the histogram of each row of ``values``.
 
     ``values``: (N, ...) integers; returns (N,) float32, one entropy per
-    leading index (the batch dimension of the JAX version's ``vmap``).
+    leading index (``jax.vmap`` of :func:`histogram_entropy`).
     """
     n = values.shape[0]
     flat = values.reshape(n, -1).to(torch.int64)

@@ -45,7 +45,7 @@ from . import mesh as pmesh
 from . import transform as ptransform
 
 
-def initialize(device, init_method: Optional[str] = None,
+def initialize(device="cuda", init_method: Optional[str] = None,
                world_size: Optional[int] = None,
                rank: Optional[int] = None) -> None:
     """Join the process group of this encode.
@@ -96,11 +96,24 @@ def end_group() -> None:
     dist.destroy_process_group()
 
 
-def make_gop_mesh(device, group=None) -> pmesh.GopMesh:
+def make_gop_mesh(device="cuda", group=None) -> pmesh.GopMesh:
     """The GOP mesh of this process on ``device`` (see
     :func:`.mesh.make_mesh`): group rank r owns the r-th run of GOPs, so
     halo traffic flows only between consecutive ranks."""
     return pmesh.make_mesh(device, group)
+
+
+def _group_mesh() -> pmesh.GopMesh:
+    """The mesh of the default process group, for an encode given no
+    mesh: on the card :func:`initialize` bound for ``nccl``, on the CPU
+    for ``gloo``."""
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call initialize() first, or "
+                           "pass a mesh")
+    if dist.get_backend() == "nccl":
+        return make_gop_mesh(torch.device("cuda",
+                                          torch.cuda.current_device()))
+    return make_gop_mesh("cpu")
 
 
 def _gops_per_rank(G: int, mesh: pmesh.GopMesh) -> int:
@@ -123,13 +136,16 @@ def shard_video_gops(video: Video, cfg: CodecConfig, mesh: pmesh.GopMesh
 
 
 def encode_gops_distributed(video: Video, cfg: CodecConfig,
-                            mesh: pmesh.GopMesh,
+                            mesh: Optional[pmesh.GopMesh] = None,
                             reversible: bool = False) -> List[bytes]:
     """Closed-GOP distributed encode: each rank encodes its own GOPs as
     self-contained streams (``api.compress`` with ``GOPs=1`` on
     ``mesh.device``); every rank returns the ordered list of all
-    ``cfg.GOPs`` streams' bytes."""
+    ``cfg.GOPs`` streams' bytes.  Without ``mesh``, the mesh of the
+    default process group (:func:`initialize` first)."""
     from .. import api
+    if mesh is None:
+        mesh = _group_mesh()
     G = cfg.GOPs
     k = _gops_per_rank(G, mesh)
     gop_cfg = cfg.replace(GOPs=1)
@@ -161,8 +177,9 @@ def _allgather_indexed_bytes(payloads: List[Tuple[int, bytes]], total: int,
 
 
 def compress_distributed(video: Video, cfg: CodecConfig,
-                         mesh: pmesh.GopMesh, reversible: bool = False,
-                         delta=None, lossless=None):
+                         mesh: Optional[pmesh.GopMesh] = None,
+                         reversible: bool = False, delta=None,
+                         lossless=None):
     """Halo-exact distributed encode: byte-identical to the sequential
     ``api.compress`` of the whole sequence on every rank.
 
@@ -175,14 +192,17 @@ def compress_distributed(video: Video, cfg: CodecConfig,
     the chunk fragments are gathered and reassembled into one
     sequential-layout :class:`VideoStream`.
 
-    Contrast :func:`encode_gops_distributed`, whose per-GOP streams are
-    closed and decodable on their own."""
+    Without ``mesh``, the mesh of the default process group
+    (:func:`initialize` first).  Contrast :func:`encode_gops_distributed`,
+    whose per-GOP streams are closed and decodable on their own."""
     from .. import api
     from ..codec.codestream import LevelSection, VideoStream
 
     if cfg.TRLs <= 1:
         raise ValueError("the distributed encode needs a temporal "
                          "transform (TRLs > 1)")
+    if mesh is None:
+        mesh = _group_mesh()
     if not isinstance(video.y, torch.Tensor):
         video = api._upload(video, "cpu")  # uint8 frames: a view, no copy
     video, cfg, true_dims, true_frames = api._pad_to_grid(video, cfg)
@@ -326,7 +346,8 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
 
 
 def scaling_point(n: int, reps: int = SCALING_REPS,
-                  cfg: Optional[CodecConfig] = None, *, device) -> Dict:
+                  cfg: Optional[CodecConfig] = None, *,
+                  device="cuda") -> Dict:
     """One point of :func:`measure_scaling`: ``encode_step_sharded`` of
     ``n`` GOPs of ``cfg`` on ``n`` ranks (:func:`run_ranks`; ``nccl``
     with rank r on ``cuda:r`` for a CUDA ``device``, ``gloo`` for the
@@ -357,21 +378,22 @@ def efficiency(point: Dict, one: Dict) -> float:
     return point["fps"] / (point["n"] * one["fps"])
 
 
-def measure_scaling(n_ranks: int, reps: int = SCALING_REPS,
-                    cfg: Optional[CodecConfig] = None, *, device) -> Dict:
+def measure_scaling(n_devices: int, reps: int = SCALING_REPS,
+                    cfg: Optional[CodecConfig] = None, *,
+                    device="cuda") -> Dict:
     """Scaling efficiency of the sharded encode step: fps on one rank
-    against ``n_ranks`` ranks with the same work per rank (one GOP of
+    against ``n_devices`` ranks with the same work per rank (one GOP of
     ``cfg``, by default :data:`SCALING_CONFIG`), each point a
     :func:`scaling_point`.  Returns ``{n_devices, fps_1, fps_n,
     efficiency, launches, points}`` with efficiency = fps_n / (n * fps_1),
     and the launches of each point and the point itself by its ``n``; at
-    ``n_ranks`` = 1 the one point is both.  With a CUDA ``device`` every
+    ``n_devices`` = 1 the one point is both.  With a CUDA ``device`` every
     rank has its own card: more ranks than cards raise."""
-    _check_cards(n_ranks, torch.device(device))
+    _check_cards(n_devices, torch.device(device))
     one = scaling_point(1, reps, cfg, device=device)
-    many = (one if n_ranks == 1
-            else scaling_point(n_ranks, reps, cfg, device=device))
-    return {"n_devices": n_ranks, "fps_1": one["fps"], "fps_n": many["fps"],
-            "efficiency": efficiency(many, one),
-            "launches": {1: one["launches"], n_ranks: many["launches"]},
-            "points": {1: one, n_ranks: many}}
+    many = (one if n_devices == 1
+            else scaling_point(n_devices, reps, cfg, device=device))
+    return {"n_devices": n_devices, "fps_1": one["fps"],
+            "fps_n": many["fps"], "efficiency": efficiency(many, one),
+            "launches": {1: one["launches"], n_devices: many["launches"]},
+            "points": {1: one, n_devices: many}}

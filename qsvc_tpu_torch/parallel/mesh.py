@@ -93,7 +93,7 @@ class GopMesh:
     halo_log: Optional[HaloLog] = None
 
 
-def make_mesh(device, group=None) -> GopMesh:
+def make_mesh(device="cuda", group=None) -> GopMesh:
     """The mesh of this process on ``device``: its rank in ``group`` (the
     default group when None, which the mesh then names by None) once
     ``torch.distributed`` is initialised, rank 0 of 1 otherwise."""

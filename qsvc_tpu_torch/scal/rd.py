@@ -44,7 +44,7 @@ def rd_curve(vs: VideoStream, original: Video,
              quantizations: Sequence[float],
              fps: float = 30.0,
              expand_fn: Optional[Callable] = None, *,
-             device) -> List[RDPoint]:
+             device="cuda") -> List[RDPoint]:
     """Trace an RD curve from one encoded stream (``psnr_vs_br``).
 
     One truncation + decode per point; points are slope values in the
@@ -66,7 +66,7 @@ def rd_curve(vs: VideoStream, original: Video,
 
 def rd_curve_gops(streams: Sequence[VideoStream], original: Video,
                   quantizations: Sequence[float],
-                  fps: float = 30.0, *, device) -> List[RDPoint]:
+                  fps: float = 30.0, *, device="cuda") -> List[RDPoint]:
     """RD curve over a per-GOP stream list (the streaming container):
     each probe truncates every GOP, decodes the sequence, and accounts
     the summed bytes."""
@@ -92,7 +92,7 @@ def search_slope_for_distortion(vs: VideoStream, original: Video,
                                 lo: float = 42000.0, hi: float = 50000.0,
                                 tol: float = 16.0,
                                 expand_fn: Optional[Callable] = None, *,
-                                device) -> Tuple[float, RDPoint]:
+                                device="cuda") -> Tuple[float, RDPoint]:
     """Binary-search the quantization slope whose decoded RMSE is closest
     to (and not above) ``target_rmse`` (``searchSlope_byDistortion``).
 

@@ -75,7 +75,8 @@ def compress_gops_resumable(video: Video, cfg: CodecConfig,
                             store: ArtifactStore,
                             reversible: bool = False,
                             window: int = 2,
-                            progress=None, *, device) -> List[bytes]:
+                            progress=None, *,
+                            device="cuda") -> List[bytes]:
     """Per-GOP encode on ``device`` with checkpoint/resume: GOPs whose
     (frames, params) hash is already in the store are NOT re-encoded; the
     missing ones run through the pipelined ``compress_chunks`` path

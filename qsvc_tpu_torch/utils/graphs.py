@@ -179,7 +179,19 @@ def _capture(fn, leaves: List[Any], spec, dev: _Device) -> _Graph:
     return _Graph(graph, inputs, out_spec, out_leaves, launches, stats)
 
 
-def _run(fn: Callable, leaves: List[Any], spec, device: torch.device):
+def _run(fn: Callable, leaves: List[Any], spec):
+    """One call of the captured ``fn`` on its flattened arguments: eager
+    without a CUDA tensor, else the replay of its key's graph (captured
+    first if the key is new)."""
+    devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
+    if not any(d.type == "cuda" for d in devices):
+        args, kwargs = _unflatten(spec, iter(leaves))
+        return fn(*args, **dict(kwargs))
+    if len(devices) > 1:
+        raise ValueError(f"{fn.__qualname__}: tensors on "
+                         f"{sorted(map(str, devices))}; a captured "
+                         f"program takes one device")
+    device = devices.pop()
     key = _key(fn, spec, leaves)
     dev = _device(device.index)
     with torch.cuda.device(device), dev.lock:
@@ -215,14 +227,7 @@ def captured(fn: Callable) -> Callable:
     def wrapper(*args, **kwargs):
         leaves: List[Any] = []
         spec = _flatten(_tree(args, kwargs), leaves)
-        devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
-        if not any(d.type == "cuda" for d in devices):
-            return fn(*args, **kwargs)
-        if len(devices) > 1:
-            raise ValueError(f"{fn.__qualname__}: tensors on "
-                             f"{sorted(map(str, devices))}; a captured "
-                             f"program takes one device")
-        return _run(fn, leaves, spec, devices.pop())
+        return _run(fn, leaves, spec)
     return wrapper
 
 

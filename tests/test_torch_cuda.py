@@ -172,7 +172,7 @@ def test_k2_k3_match_plain(cuda, bs, sr):
     mv = _rand(rng, (P, 2, 2, By, Bx), -sr - 1, sr + 2, np.int32, cuda)
     torch.testing.assert_close(
         predict.predict_frames_batch(*refs, mv, bs, sr),
-        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+        predict.predict_frames_plain(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
     res = _rand(rng, (P, C, H, W), -128, 128, np.int16, cuda)
     got = update.update_fields_batch2(res, mv, bs, 0.25, sr)
     for d in range(2):
@@ -215,7 +215,7 @@ def _assert_mc_exact(refs, contrib, mv, bs, sr):
     directions equal two K4 launches on the same inputs."""
     torch.testing.assert_close(
         cuda_mc.predict(*refs, mv, bs, 4 * sr),
-        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+        predict.predict_frames_plain(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
     k3 = cuda_mc.update2(contrib, mv, bs, sr)
     for d in range(2):
         my, mx = mv[:, d, 0].contiguous(), mv[:, d, 1].contiguous()
@@ -261,7 +261,7 @@ def test_mc_kernels_exact_off_the_fast_paths(cuda, bs, sr, C):
         shifted.append(view)
     torch.testing.assert_close(
         cuda_mc.predict(*shifted, mv, bs, 4 * sr),
-        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+        predict.predict_frames_plain(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -289,7 +289,7 @@ def test_k2_exact_large_blocks(cuda, bs):
     refs, _, mv = _mc_inputs(rng, 2, 3, 2, 3, bs, sr, False, cuda)
     torch.testing.assert_close(
         predict.predict_frames_batch(*refs, mv, bs, sr),
-        predict.predict_frame(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
+        predict.predict_frames_plain(*refs, mv, bs, 4 * sr), rtol=0, atol=0)
 
 
 @pytest.mark.gpu

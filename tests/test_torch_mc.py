@@ -1,7 +1,7 @@
 """PyTorch port: motion-compensated predict and update against the JAX
 package.
 
-The plain versions of K2 (``predict.predict_frame``) and K3
+The plain versions of K2 (``predict.predict_frames_plain``) and K3
 (``update._update_field``) against the Pallas kernels in interpret mode
 and against the lax formulations, including the |mv| == block_size
 extremes and vectors one past the update's padding.  Exact."""
@@ -64,7 +64,8 @@ def test_predict_plain_matches_pallas(rng):
         want = np.asarray(pallas_mc.predict_pallas(
             jnp.asarray(_pad(refs_p, BS, "edge")),
             jnp.asarray(_pad(refs_n, BS, "edge")), jnp.asarray(mv), BS))
-    got = predict.predict_frame(*_t(refs_p, refs_n, mv), BS, 4 * SR).numpy()
+    got = predict.predict_frames_plain(*_t(refs_p, refs_n, mv), BS,
+                                       4 * SR).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -74,7 +75,8 @@ def test_predict_plain_matches_lax(rng, reach):
     lax = np.asarray(jax.vmap(lambda a, b, m: jpredict.predict_frame(
         a, b, m, BS, 4 * SR))(jnp.asarray(refs_p), jnp.asarray(refs_n),
                               jnp.asarray(mv)))
-    got = predict.predict_frame(*_t(refs_p, refs_n, mv), BS, 4 * SR).numpy()
+    got = predict.predict_frames_plain(*_t(refs_p, refs_n, mv), BS,
+                                       4 * SR).numpy()
     np.testing.assert_array_equal(got, lax)
 
 
@@ -86,7 +88,8 @@ def test_predict_plain_beyond_border_matches_lax(rng):
     lax = np.asarray(jax.vmap(lambda a, b, m: jpredict.predict_frame(
         a, b, m, 16, 3))(jnp.asarray(refs[0]), jnp.asarray(refs[1]),
                          jnp.asarray(mv)))
-    got = predict.predict_frame(*_t(refs[0], refs[1], mv), 16, 3).numpy()
+    got = predict.predict_frames_plain(*_t(refs[0], refs[1], mv), 16,
+                                       3).numpy()
     np.testing.assert_array_equal(got, lax)
 
 
@@ -154,11 +157,11 @@ def test_decorrelate_correlate_match_jax(rng):
     want = jax.vmap(jpredict.decorrelate_from_pred)(
         (jnp.asarray(oy), jnp.asarray(ou), jnp.asarray(ov)),
         jnp.asarray(pred), jnp.asarray(mv))
-    got = predict.decorrelate_from_pred(_t(oy, ou, ov), _t(pred)[0],
-                                        _t(mv)[0])
+    got = predict.decorrelate_from_preds(_t(oy, ou, ov), _t(pred)[0],
+                                         _t(mv)[0])
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
-    back = predict.correlate_from_pred(got[:3], _t(pred)[0], got.is_B)
+    back = predict.correlate_from_preds(got[:3], _t(pred)[0], got.is_B)
     want_back = jax.vmap(jpredict.correlate_from_pred)(
         tuple(want[:3]), jnp.asarray(pred), want.is_B)
     for g, w_ in zip(back, want_back):
@@ -210,7 +213,8 @@ def test_predict_frames_subpixel_matches_jax(rng, a, d):
     want = jpredict.predict_frames_subpixel(
         jnp.asarray(evens[:-1]), jnp.asarray(evens[1:]), jnp.asarray(mv),
         16, sr, a, d)
-    got = predict.predict_frames_subpixel(*_t(evens, mv), 16, sr, a, d)
+    got = predict.predict_frames_subpixel_evens(*_t(evens, mv), 16, sr, a,
+                                                d)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

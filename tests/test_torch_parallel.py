@@ -498,3 +498,29 @@ def test_end_group_ends_every_rank(n):
         assert got == (None if r == 0 else r - 1)
         assert blobs == [bytes([i]) for i in range(n)]
         assert not still
+
+
+# ------------------------------------------- (i) the encodes without a mesh
+
+def _default_mesh_rank(rank, n, store, G):
+    pdist.initialize("cpu", init_method=f"file://{store}", world_size=n,
+                     rank=rank)
+    cfg = CodecConfig(GOPs=G, **KW)
+    vid = _video(G)
+    data = pdist.compress_distributed(vid, cfg, reversible=True).to_bytes()
+    gops = pdist.encode_gops_distributed(vid, cfg, reversible=True)
+    pdist.end_group()
+    return data, gops
+
+
+def test_encodes_without_a_mesh_use_the_default_group():
+    """``mesh=None``, as the JAX calls leave it: the mesh of the default
+    process group (here 2 gloo ranks); without a group, an error."""
+    vid, cfg = _video(2), CodecConfig(GOPs=2, **KW)
+    for fn in (pdist.compress_distributed, pdist.encode_gops_distributed):
+        with pytest.raises(RuntimeError, match="no process group"):
+            fn(vid, cfg)
+    ref = _jax_ref(2)
+    for data, gops in pdist.run_ranks(_default_mesh_rank, 2, 2,
+                                      timeout=300):
+        assert data == ref["bytes"] and gops == ref["gops"]
