@@ -114,7 +114,17 @@ Phases, one line each; any failure exits non-zero before the last line:
    GOP's encode and decode walls after ``graphs.clear()``, without and
    with ``api.prewarm`` / ``prewarm_decode`` in turns, with the graphs
    that GOP captured (none after a prewarm, or the run fails); (c)
-   ``api.compress(video, cfg)`` without ``device`` runs on the card.
+   ``api.compress(video, cfg)`` without ``device`` runs on the card;
+11. the port's measurement entries (``qsvc_tpu_torch/tools``): (a)
+   ``python3 -m qsvc_tpu_torch.tools.bench`` in a process of its own,
+   which must exit 0 with the keys of the JAX package's ``bench.py`` (its
+   two tunnel keys renamed) and with phase 4's bpp and PSNR-Y, its row
+   printed on a line of its own; (b) meanwhile the RD harness's curves
+   of ``translate_int`` and ``translate_frac``, both coders, on the card,
+   each MCTF point within 1 % of the CPU's bytes and 0.05 dB of its
+   PSNR-Y, K1-K3 launched, and ``translate_int``'s two mid-rate points
+   at least 2.0 dB (mq) and 0.5 dB (bp) above OpenJPEG-intra at the same
+   rate.
 
 The whole run takes 190-340 s on an H100 (phase 9 about 36 s).
 
@@ -178,6 +188,16 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 FLAGSHIP_LEVELS = ((8, 4), (4, 8), (2, 16), (1, 32))
 #: the flagship's frame and block size
 FLAGSHIP_H, FLAGSHIP_W, FLAGSHIP_BS = 1088, 1920, 64
+#: the keys of ``python3 -m qsvc_tpu_torch.tools.bench``'s row: those of
+#: the JAX package's ``bench.py``, its two tunnel keys renamed
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"} | {
+    f"detail.{k}" for k in (
+        "frames", "gops", "seconds", "warmup_seconds", "prewarm_seconds",
+        "e2e_fps", "bpp", "psnr_y", "psnr_u", "psnr_v", "decode_fps",
+        "decode_e2e_fps", "decode_prewarm_seconds", "device")}
+#: the least mid-rate advantage of MCTF over OpenJPEG-intra on
+#: ``translate_int`` by coder, dB (the bounds of tests/test_rd_anchor.py)
+RD_MIN_ADVANTAGE = {"mq": 2.0, "bp": 0.5}
 #: phase 3's MCTF configurations (over 256x128, block 32, search 8)
 MCTF_CASES = {"whole-pixel": {}, "a=1": dict(subpixel_accuracy=1),
               "a=2": dict(subpixel_accuracy=2),
@@ -738,7 +758,7 @@ def _staged_run(dev, cfg, title, phase):
     its slope; prints fps, bpp, PSNR, the launches (of the whole run, and
     of the timed encode and decode) and the peak device memory, fails if
     K1-K3 never launched or PSNR-Y < 25 dB; returns the launch counts of
-    the run (set to 0 just before it)."""
+    the run (set to 0 just before it) and its (bpp, PSNR-Y)."""
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.codec.codestream import VideoStream
     from qsvc_tpu_torch.io import Video, synthetic_video, video_psnr
@@ -801,7 +821,7 @@ def _staged_run(dev, cfg, title, phase):
         raise SystemExit(f"{phase}: kernels never launched: {missing}")
     if not py >= 25.0:
         raise SystemExit(f"{phase}: PSNR-Y {py:.3f} dB < 25 dB")
-    return counts
+    return counts, (bpp, py)
 
 
 def phase_subpixel(dev):
@@ -1854,6 +1874,124 @@ def phase_contract(dev):
           f"{time.time() - t_start:.3f} s", flush=True)
 
 
+def _bench_process():
+    """Start ``python3 -m qsvc_tpu_torch.tools.bench`` from the root of
+    this checkout, its output to temporary files: (process, stdout,
+    stderr)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "qsvc_tpu_torch.tools.bench"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=out, stderr=err, text=True)
+    return proc, out, err
+
+
+def _bench_row(proc, out, err, flagship_quality):
+    """Wait for the bench process; its JSON row, after checking its exit
+    code, its keys and that its bpp and PSNR-Y are phase 4's."""
+    with out, err:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().strip().splitlines()
+        errors = err.read()
+    if rc != 0 or not lines or not lines[-1].startswith("{"):
+        tail = "\n".join(lines[-5:])
+        raise SystemExit(f"phase 11a: the bench exited {rc}:\n{tail}\n"
+                         f"{errors[-3000:]}")
+    row = json.loads(lines[-1])
+    keys = set(row) | {f"detail.{k}" for k in row.get("detail", {})}
+    if keys != BENCH_KEYS:
+        raise SystemExit(f"phase 11a: the bench's keys differ: missing "
+                         f"{sorted(BENCH_KEYS - keys)}, extra "
+                         f"{sorted(keys - BENCH_KEYS)}")
+    got = (row["detail"]["bpp"], row["detail"]["psnr_y"])
+    if got != flagship_quality:
+        raise SystemExit(f"phase 11a: the bench's bpp and PSNR-Y {got} are "
+                         f"not phase 4's {flagship_quality}")
+    return row, lines[-2]
+
+
+def _rd_curves(dev):
+    """The RD harness's curves of ``translate_int`` and ``translate_frac``,
+    both coders, on the card, each MCTF point held to the CPU's (bytes
+    within 1 %, PSNR-Y within 0.05 dB) and ``translate_int``'s mid-rate
+    advantages to their bounds; returns one summary per curve and the
+    launches of the card's curves."""
+    from qsvc_tpu_torch.config import CodecConfig
+    from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.tools import rd_harness
+
+    cfg = CodecConfig(**rd_harness.CONFIG)
+    videos = rd_harness.sequences(cfg)
+    rows, bad = [], []
+    cuda_lib.reset_launches()
+    for name in rd_harness.TRANSLATE:
+        c = cfg.replace(subpixel_accuracy=rd_harness.SUBPIXEL.get(name, 0))
+        for coder in ("bp", "mq"):
+            card = rd_harness.curve_for(videos[name], c, coder,
+                                        rd_harness.SLOPES, device=dev)
+            _, cpu = rd_harness.mctf_points(videos[name], c, coder,
+                                            rd_harness.SLOPES, device="cpu")
+            for p, q in zip(card["points"], cpu):
+                if (abs(p["mctf_bytes"] - q.bytes) > 0.01 * q.bytes
+                        or abs(p["mctf_psnr_y"] - q.psnr_y) > 0.05):
+                    bad.append(f"{name} {coder} slope {q.quantization:.0f}: "
+                               f"card {p['mctf_bytes']} B "
+                               f"{p['mctf_psnr_y']:.3f} dB, CPU {q.bytes} B "
+                               f"{q.psnr_y:.3f} dB")
+            adv = rd_harness.midrate_advantages(card)
+            if name == "translate_int" and min(adv) < RD_MIN_ADVANTAGE[coder]:
+                bad.append(f"{name} {coder}: mid-rate advantage {adv} dB < "
+                           f"{RD_MIN_ADVANTAGE[coder]} dB")
+            psnr = [round(p["mctf_psnr_y"], 3) for p in card["points"]]
+            rows.append(f"{name} {coder} bytes "
+                        f"{[p['mctf_bytes'] for p in card['points']]} "
+                        f"(CPU {[q.bytes for q in cpu]}), PSNR-Y {psnr}, "
+                        f"mid-rate advantage {[round(a, 3) for a in adv]} "
+                        f"dB")
+    if bad:
+        raise SystemExit(f"phase 11b: RD on the card: {bad}")
+    return rows, dict(cuda_lib.launches)
+
+
+def phase_tools(dev, flagship_quality):
+    """11: the port's measurement entries: (a) ``python3 -m
+    qsvc_tpu_torch.tools.bench`` in a process of its own, which must exit
+    0 with ``bench.py``'s keys (two renamed) and phase 4's bpp and PSNR-Y;
+    (b) meanwhile, in this process, the RD harness's curves of the two
+    translating sequences, both coders, on the card against the CPU (its
+    encode times and the bench's fps are not measurements: the two share
+    the card and the host)."""
+    t_start = time.time()
+    torch.cuda.empty_cache()        # room for the bench's process
+    proc, out, err = _bench_process()
+    try:
+        rows, launches = _rd_curves(dev)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    row, launch_line = _bench_row(proc, out, err, flagship_quality)
+    missing = [k for k in SEQUENTIAL_KERNELS if not launches.get(k)]
+    if missing:
+        raise SystemExit(f"phase 11b: the RD curves on the card never "
+                         f"launched {missing}: {launches}")
+    print(f"  11a python3 -m qsvc_tpu_torch.tools.bench: exit 0, its keys, "
+          f"bpp and PSNR-Y == phase 4's; {launch_line}; its row:",
+          flush=True)
+    print(json.dumps(row), flush=True)
+    print(f"  11b RD harness curves on the card == CPU (bytes 1 %, PSNR-Y "
+          f"0.05 dB), launches {launches}: {'; '.join(rows)}", flush=True)
+    print(f"phase 11 measurement entries: ok; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1863,8 +2001,8 @@ def main() -> int:
     phase_setup()
     parity = phase_kernel_parity(dev)
     phase_correctness(dev)
-    counts = {k: v for k, v in phase_flagship(dev).items()
-              if k in SEQUENTIAL_KERNELS}
+    counts, flagship_quality = phase_flagship(dev)
+    counts = {k: v for k, v in counts.items() if k in SEQUENTIAL_KERNELS}
     counts["mc_update1"] = phase_sharded(dev)["mc_update1"]
     phase_halo(dev)
     phase_nccl()
@@ -1875,6 +2013,7 @@ def main() -> int:
             counts[name] += n
     phase_graphs(dev)
     phase_contract(dev)
+    phase_tools(dev, flagship_quality)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

@@ -146,7 +146,9 @@ def test_port_does_not_import_jax():
             "qsvc_tpu_torch.ops.lifting, qsvc_tpu_torch.mctf.me, "
             "qsvc_tpu_torch.mctf.predict, qsvc_tpu_torch.codec.mq, "
             "qsvc_tpu_torch.codec.tier1, qsvc_tpu_torch.codec.fast, "
-            "qsvc_tpu_torch.parallel.scaling;"
+            "qsvc_tpu_torch.parallel.scaling, qsvc_tpu_torch.tools.bench, "
+            "qsvc_tpu_torch.tools.bench_decode, "
+            "qsvc_tpu_torch.tools.rd_harness, qsvc_tpu_torch.tools.spread;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'qsvc_tpu.')) or m == 'qsvc_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
