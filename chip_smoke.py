@@ -124,9 +124,20 @@ Phases, one line each; any failure exits non-zero before the last line:
    each MCTF point within 1 % of the CPU's bytes and 0.05 dB of its
    PSNR-Y, K1-K3 launched, and ``translate_int``'s two mid-rate points
    at least 2.0 dB (mq) and 0.5 dB (bp) above OpenJPEG-intra at the same
-   rate.
+   rate;
+12. the attribution tools (``qsvc_tpu_torch/tools/profile*``) in a
+   process of their own: ``profile_stages`` (one flagship GOP's stage
+   split, graphed and eager, whose streams must equal ``api.compress``'s
+   of the same GOP in that process, then ``torch.profiler`` over the
+   4-GOP ``compress_chunks``) and ``profile_decode --loops 5`` (the
+   staged decode's stages over 5 loops, then the profiler over one); each
+   profile must have seen device time, a busy share in (0, 1], K1, K2
+   and K3 (encode: 14, 4 and 4 a GOP) and K2 and K3 (decode: 4 and 4 a
+   GOP) among its device operations as often as the launch counters
+   counted them, and trace stages that sum to no more than the window's
+   wall; their top 5 operations and longest idle gaps are printed.
 
-The whole run takes 190-340 s on an H100 (phase 9 about 36 s).
+The whole run takes 190-400 s on an H100 (phase 9 about 36 s).
 
 The second-to-last line is a JSON object with one entry per kernel
 (launches counted on that kernel's main paths: phase 4 for K1-K3, phase
@@ -1236,6 +1247,7 @@ def _rest_filter_banks(dev, vid):
     then ``upsample2``/``downsample2`` with Haar on the 4:2:0 chroma
     stack and ``border.pad_edge`` of the luma stack, card == CPU."""
     from qsvc_tpu_torch.ops import border, dwt2d
+    from qsvc_tpu_torch.tools.profile import window
     x = torch.from_numpy(vid.y.astype(np.int32) - 128).to(dev)
     x_cpu = x[:2].cpu()
     rows = []
@@ -1253,7 +1265,7 @@ def _rest_filter_banks(dev, vid):
         ms = [_cuda_ms(f, reps=3, batch=1, warmup=1) for f in (
             lambda: dwt2d.analyze(x, 4, filt),
             lambda: dwt2d.synthesize(a, 4, filt))]
-        ops = [profile_run(f)[3] for f in (
+        ops = [window(f, smi=False)["device_ops"] for f in (
             lambda: dwt2d.analyze(x, 4, filt),
             lambda: dwt2d.synthesize(a, 4, filt))]
         rows.append(f"{filt} analyze {ms[0]:.3f} ms ({ops[0]} device ops), "
@@ -1472,60 +1484,6 @@ def phase_rest(dev):
     return counts
 
 
-@contextlib.contextmanager
-def _eager_programs():
-    """The port's API with its captured programs swapped for their eager
-    functions, for phase 9's comparisons and ``tools/graphs_ab.py``'s
-    parent-free baseline; restored on exit.  The port has no such switch
-    itself."""
-    from qsvc_tpu_torch.codec import frame_codec
-    from qsvc_tpu_torch.mctf import motion_coding, transform
-    swaps = [(transform, "analyze_jit", transform.analyze),
-             (transform, "synthesize_jit", transform.synthesize),
-             (motion_coding, "decorrelate_jit", motion_coding.decorrelate),
-             (motion_coding, "correlate_jit", motion_coding.correlate),
-             (frame_codec, "_encode_device_jit", frame_codec._encode_device),
-             (frame_codec, "_dequant_idwt_jit", frame_codec._dequant_idwt)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    try:
-        for mod, name, fn in swaps:
-            setattr(mod, name, fn)
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
-def profile_run(fn):
-    """One call of ``fn`` under ``torch.profiler``, ended by a
-    synchronise: (wall s, device busy s as the union of the device's
-    kernel, copy and fill intervals, host launches as the CUDA runtime
-    launch calls (kernels and graphs), device operations)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    launches = sum(1 for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.name.startswith("cu") and "Launch" in e.name)
-    return wall, busy * 1e-6, launches, len(spans)
-
-
 def _same(a, b):
     a, b = list(a), list(b)
     return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
@@ -1593,6 +1551,7 @@ def phase_graphs(dev):
     from qsvc_tpu_torch.codec.codestream import VideoStream
     from qsvc_tpu_torch.io import Video, synthetic_video
     from qsvc_tpu_torch.ops import cuda_lib
+    from qsvc_tpu_torch.tools.profile import eager_programs, window
     from qsvc_tpu_torch.utils import graphs
 
     t_start = time.time()
@@ -1658,7 +1617,7 @@ def phase_graphs(dev):
         return parsed, enc, dict(cuda_lib.launches)
     encode_decode()                        # captures what 9a did not
     parsed, enc_g, dec_g = encode_decode()
-    with _eager_programs():
+    with eager_programs():
         parsed_e, enc_e, dec_e = encode_decode()
     if (enc_g, dec_g) != (enc_e, dec_e):
         raise SystemExit(f"phase 9: launches through the graphs {enc_g} / "
@@ -1685,14 +1644,15 @@ def phase_graphs(dev):
     rows = []
     for name in ("replayed", "eager", "replayed ", "eager "):
         if name.startswith("eager"):
-            with _eager_programs():
+            with eager_programs():
                 decode()
-                r = profile_run(decode)
+                w = window(decode, smi=False)
         else:
-            r = profile_run(decode)
-        rows.append(f"{name.strip()} wall {r[0]:.4f} s, device busy "
-                    f"{r[1]:.4f} s ({r[1] / r[0]:.1%}), host launches "
-                    f"{r[2]}, device ops {r[3]}")
+            w = window(decode, smi=False)
+        rows.append(f"{name.strip()} wall {w['wall_s']:.4f} s, device busy "
+                    f"{w['busy_s']:.4f} s ({w['busy_share']:.1%}), host "
+                    f"launches {w['host_launches']}, device ops "
+                    f"{w['device_ops']}")
     print(f"  9b launches per 4-GOP encode {enc_g} and decode {dec_g}, "
           f"through the graphs == eager, same bytes; expand_gops (2 "
           f"threads) == serial expand; decode of 4 GOPs under "
@@ -1992,6 +1952,98 @@ def phase_tools(dev, flagship_quality):
           f"{time.time() - t_start:.3f} s", flush=True)
 
 
+#: phase 12: the kernels each profiled window must hold, launches per GOP
+PROFILE_KERNELS = {"encode": {"me_refine": 14, "mc_predict": 4,
+                              "mc_update2": 4},
+                   "decode": {"mc_predict": 4, "mc_update2": 4}}
+#: phase 12's process: ``profile_stages`` and ``profile_decode --loops 5``
+_PROFILE_CHILD = (
+    "import sys\n"
+    "from qsvc_tpu_torch.tools import profile_decode, profile_stages\n"
+    "sys.exit(profile_stages.main(['--out', sys.argv[1]])\n"
+    "         or profile_decode.main(['--loops', '5', '--out', sys.argv[2]]))"
+)
+
+
+def _check_profile(name, prof, gops):
+    """Phase 12's checks of one ``device_profile`` (which has already
+    failed if the profiler's kernel counts differ from the launch
+    counters): the faults found."""
+    bad = []
+    if not prof["busy_s"] > 0:
+        bad.append(f"{name}: the profiler saw no device time")
+    if not 0 < prof["busy_share"] <= 1:
+        bad.append(f"{name}: busy share {prof['busy_share']} is not in "
+                   f"(0, 1]")
+    for k, per_gop in PROFILE_KERNELS[name].items():
+        seen, counted = prof["kernels"].get(k, 0), prof["launches"].get(k, 0)
+        if not seen == counted == per_gop * gops:
+            bad.append(f"{name}: {k} seen {seen} times by the profiler, "
+                       f"counted {counted}, want {per_gop} x {gops} GOPs")
+    if prof["stages_sum_s"] > prof["host_wall_s"]:
+        bad.append(f"{name}: stages {prof['stages_sum_s']} s > the window's "
+                   f"{prof['host_wall_s']} s")
+    return bad
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_profile():
+    """12: the attribution tools in a process of their own:
+    ``profile_stages`` (its split and graphed encodes == ``api.compress``
+    of the same GOP, and the profile of the 4-GOP ``compress_chunks``)
+    and ``profile_decode --loops 5`` (the profile of one 4-GOP staged
+    decode loop); each profile must have seen device time, a busy share
+    in (0, 1], K1-K3 (encode) and K2-K3 (decode) as often as the launch
+    counters and the GOPs say, and stages within the window's wall."""
+    t_start = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f) for f in ("stages.json", "decode.json")]
+        proc = subprocess.run(
+            [sys.executable, "-c", _PROFILE_CHILD, *outs],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 12: the profile process exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+        stages, decode = map(_read_json, outs)
+    bad = [] if stages["identical"] else [
+        "profile_stages' streams differ from api.compress"]
+    bad += _check_profile("encode", stages["profile"], stages["gops"])
+    bad += _check_profile("decode", decode["profile"], decode["gops"])
+    if bad:
+        raise SystemExit(f"phase 12: {bad}")
+    for name, prof in (("encode", stages["profile"]),
+                       ("decode", decode["profile"])):
+        print(f"  12 {name}: wall {prof['wall_s']:.6f} s (profiled), busy "
+              f"{prof['busy_s']:.6f} s = {prof['busy_share']:.4f}, stages "
+              f"{prof['stages_sum_s']:.6f} s, window under no stage "
+              f"{prof['unstaged_share']:.4f}; kernels {prof['kernels']}",
+              flush=True)
+        for op in prof["top_ops"][:5]:
+            print(f"    top: {op['seconds']:.6f} s x{op['count']} "
+                  f"{op['name']}", flush=True)
+        for gap in prof["gaps"][:5]:
+            print(f"    gap: {gap['seconds']:.6f} s under {gap['stage']}",
+                  flush=True)
+    st = decode["stats"]
+    print(f"  12 profile_stages one GOP: graphed "
+          f"{stages['graphed']['total_s']:.6f} s, split "
+          f"{stages['split']['total_s']:.6f} s (bp R-D sim "
+          f"{stages['split']['stages']['bp_rd_sim']:.6f} s), streams == "
+          f"api.compress; profile_decode {st['loops']} loops: wall median "
+          f"{st['wall']['median']:.6f} s, (max - min) / median "
+          f"{st['wall']['spread']:.4f}, swing carried by {st['swing']}",
+          flush=True)
+    print(f"phase 12 attribution tools: ok; phase "
+          f"{time.time() - t_start:.3f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2014,6 +2066,7 @@ def main() -> int:
     phase_graphs(dev)
     phase_contract(dev)
     phase_tools(dev, flagship_quality)
+    phase_profile()
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": parity[name][0], "ms": parity[name][1],

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -66,16 +67,38 @@ def flagship() -> tuple:
                                 cfg.pixels_in_x, seed=0)
 
 
+def card_uuid(index: int) -> str:
+    """The UUID by which ``nvidia-smi -i`` picks torch's device
+    ``index`` (``nvidia-smi`` numbers the cards its own way and ignores
+    ``CUDA_VISIBLE_DEVICES``)."""
+    uuid = str(torch.cuda.get_device_properties(index).uuid)
+    return uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+
+
 def device_name(device) -> str:
     """The card's name and power limit as ``nvidia-smi`` reads them, or
     ``"cpu"``."""
     device = torch.device(device)
     if device.type != "cuda":
         return device.type
-    from ..parallel.scaling import cards
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return cards()[index]
+    return subprocess.run(
+        ["nvidia-smi", "-i", card_uuid(index),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+
+
+def staged_gops(video: Video, cfg: CodecConfig, device) -> list:
+    """``video``'s ``cfg.GOPs`` GOP chunks (each with the next GOP's first
+    frame) on ``device``, the copies finished."""
+    S = cfg.gop_size
+    staged = [Video(*(torch.from_numpy(p[g * S:(g + 1) * S + 1]).to(device)
+                      for p in video.planes())) for g in range(cfg.GOPs)]
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return staged
 
 
 def launches_since(before: dict) -> dict:
@@ -115,12 +138,8 @@ def bench(cfg: CodecConfig, video: Video, device="cuda") -> tuple:
     # to the encoded streams in host memory (``compress_chunks`` fetches
     # each GOP's code-blocks from the card, so the window ends after the
     # card's last work for it)
-    S = cfg.gop_size
     gop_cfg = cfg.replace(GOPs=1)
-    staged = [Video(*(torch.from_numpy(p[g * S:(g + 1) * S + 1]).to(device)
-                      for p in video.planes())) for g in range(gops)]
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)      # the chunks are on the card
+    staged = staged_gops(video, cfg, device)
     api.compress_chunks(staged, gop_cfg, reversible=False, device=device)
     before = dict(cuda_lib.launches)
     t0 = time.perf_counter()

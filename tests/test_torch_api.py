@@ -148,7 +148,16 @@ def test_port_does_not_import_jax():
             "qsvc_tpu_torch.codec.tier1, qsvc_tpu_torch.codec.fast, "
             "qsvc_tpu_torch.parallel.scaling, qsvc_tpu_torch.tools.bench, "
             "qsvc_tpu_torch.tools.bench_decode, "
-            "qsvc_tpu_torch.tools.rd_harness, qsvc_tpu_torch.tools.spread;"
+            "qsvc_tpu_torch.tools.rd_harness, qsvc_tpu_torch.tools.spread, "
+            "qsvc_tpu_torch.tools.profile, "
+            "qsvc_tpu_torch.tools.profile_stages, "
+            "qsvc_tpu_torch.tools.profile_mctf, "
+            "qsvc_tpu_torch.tools.profile_decode, "
+            "qsvc_tpu_torch.tools.profile_pipeline, "
+            "qsvc_tpu_torch.tools.profile_warmup, "
+            "qsvc_tpu_torch.tools.profile_hbm, "
+            "qsvc_tpu_torch.tools.profile_transfer, "
+            "qsvc_tpu_torch.tools.profile_dispatch;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'qsvc_tpu.')) or m == 'qsvc_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")

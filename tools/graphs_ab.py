@@ -9,8 +9,10 @@ flagship (1920x1088, TRLs 5, 9/7 at slope 45000) staged on the card, at
 whole-pixel accuracy (phase 4) and at sub-pixel accuracy 2 (phase 6):
 encode and decode fps, bpp, PSNR, kernel launches and peak device
 memory.  Then one encode and one decode of the 4 whole-pixel GOPs under
-``torch.profiler`` (``chip_smoke.profile_run``): wall, device busy
-share, host launches (CUDA runtime launch calls) and device operations.
+``torch.profiler`` (``qsvc_tpu_torch.tools.profile.window``): wall,
+device busy share, host launches (CUDA runtime launch calls) and device
+operations.  ROOT's package must have ``tools/profile.py`` and
+``tools.bench.staged_gops``.
 Run in turns on two checkouts on one card (parent, change, change,
 parent), it compares them; the parent is unpacked with ``git archive``
 into a gitignored directory.
@@ -36,7 +38,9 @@ def main() -> int:
     spec.loader.exec_module(chip_smoke)
     from qsvc_tpu_torch import api
     from qsvc_tpu_torch.codec.codestream import VideoStream
-    from qsvc_tpu_torch.io import Video, synthetic_video
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.tools.bench import staged_gops
+    from qsvc_tpu_torch.tools.profile import window
 
     print(f"checkout {root}", flush=True)
     dev = torch.device("cuda")
@@ -45,30 +49,29 @@ def main() -> int:
     chip_smoke._staged_run(dev, chip_smoke._flagship_cfg(subpixel_accuracy=2),
                            "sub-pixel flagship a=2", "a=2")
     cfg = chip_smoke._flagship_cfg()
-    gop_cfg, S = cfg.replace(GOPs=1), cfg.gop_size
+    gop_cfg = cfg.replace(GOPs=1)
     vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
                           seed=0)
-    staged = [Video(*(torch.from_numpy(p[g * S:(g + 1) * S + 1]).to(dev)
-                      for p in vid.planes())) for g in range(cfg.GOPs)]
+    staged = staged_gops(vid, cfg, dev)
     streams = []
 
     def encode():
         streams[:] = api.compress_chunks(staged, gop_cfg, reversible=False,
                                          device=dev)
     encode()
-    enc = chip_smoke.profile_run(encode)
+    enc = window(encode, smi=False)
     parsed = [VideoStream.from_bytes(s.to_bytes()) for s in streams]
 
     def decode():
         for p in parsed:
             api.expand(p, to_host=False, device=dev)
     decode()
-    dec = chip_smoke.profile_run(decode)
-    for name, (wall, busy, launches, ops) in (("encode", enc),
-                                              ("decode", dec)):
-        print(f"profiled 4-GOP {name}: wall {wall:.4f} s, device busy "
-              f"{busy:.4f} s ({busy / wall:.1%}), host launches {launches}, "
-              f"device ops {ops}", flush=True)
+    dec = window(decode, smi=False)
+    for name, w in (("encode", enc), ("decode", dec)):
+        print(f"profiled 4-GOP {name}: wall {w['wall_s']:.4f} s, device "
+              f"busy {w['busy_s']:.4f} s ({w['busy_share']:.1%}), host "
+              f"launches {w['host_launches']}, device ops "
+              f"{w['device_ops']}", flush=True)
     return 0
 
 
