@@ -145,7 +145,8 @@ def compress_dispatch(video: Video, cfg: CodecConfig,
     stack, and the motion-field decorrelation.  Nothing waits for the
     device; the returned handle is drained by :func:`compress_finish`."""
     with trace.stage("upload+mctf_dispatch", frames=int(video.frames)):
-        video = _upload(video, device)
+        with trace.stage("upload"):     # pageable: waits for the stream
+            video = _upload(video, device)
         video, cfg, true_dims, true_frames = _pad_to_grid(video, cfg)
         cfg.validate()
         delta, lossless, coder = _operating_point(cfg, reversible, delta,
@@ -219,11 +220,12 @@ def compress_finish_stats(pending: dict) -> dict:
         residues = [_host(r) for r in pending["residues_dev"]]
     pending = dict(pending)
     coder = pending["coder"]
-    pending["_sel"] = (
-        frame_codec.encode_frames_select_sparse(
-            pend_l, pending["luma_thr"], coder, stats_l),
-        frame_codec.encode_frames_select_sparse(
-            pend_c, pending["chroma_thr"], coder, stats_c))
+    with trace.stage("texture_select"):
+        pending["_sel"] = (
+            frame_codec.encode_frames_select_sparse(
+                pend_l, pending["luma_thr"], coder, stats_l),
+            frame_codec.encode_frames_select_sparse(
+                pend_c, pending["chroma_thr"], coder, stats_c))
     pending["_residues"] = residues
     return pending
 
@@ -252,6 +254,12 @@ def compress_finish(pending: dict) -> VideoStream:
         enc_c = frame_codec.encode_frames_finish_sparse(
             sel_c, Hc, Wc, chroma_thr, coder)
 
+    # one native call for every motion field of every level
+    with trace.stage("motion_coding"):
+        all_fields = [residues[t][i] for t in range(len(stream.levels))
+                      for i in range(residues[t].shape[0])]
+        all_motion = codestream.encode_motion_fields(all_fields)
+
     def trunc(frames, row):
         t = thr(row)
         if t <= 0:
@@ -263,30 +271,25 @@ def compress_finish(pending: dict) -> VideoStream:
         return [{"y": enc_l[lo_y + i], "u": enc_c[lo_c + i],
                  "v": enc_c[lo_c + n + i]} for i in range(n)]
 
-    n0 = stream.low_y.shape[0]
-    low = trunc(plane_set(0, 0, n0), 0)
-
-    # one native call for every motion field of every level
-    all_fields = [residues[t][i] for t in range(len(stream.levels))
-                  for i in range(residues[t].shape[0])]
-    all_motion = codestream.encode_motion_fields(all_fields)
-
-    levels: List[LevelSection] = []
-    oy, oc = n0, 2 * n0
-    mo = 0
-    for t, lev in enumerate(stream.levels, start=1):
-        p = lev.high_y.shape[0]
-        high = trunc(plane_set(oy, oc, p), cfg.TRLs - t)
-        oy += p
-        oc += 2 * p
-        motion = all_motion[mo:mo + p]
-        mo += p
-        ftypes = bytes(b"B"[0] if b else b"I"[0] for b in _host(lev.is_B))
-        levels.append(LevelSection(high, motion, ftypes))
-
-    return VideoStream(cfg, pending["reversible"], pending["delta"], low,
-                       levels, true_dims=pending["true_dims"],
-                       true_frames=pending["true_frames"])
+    with trace.stage("assemble_stream"):
+        n0 = stream.low_y.shape[0]
+        low = trunc(plane_set(0, 0, n0), 0)
+        levels: List[LevelSection] = []
+        oy, oc = n0, 2 * n0
+        mo = 0
+        for t, lev in enumerate(stream.levels, start=1):
+            p = lev.high_y.shape[0]
+            high = trunc(plane_set(oy, oc, p), cfg.TRLs - t)
+            oy += p
+            oc += 2 * p
+            motion = all_motion[mo:mo + p]
+            mo += p
+            ftypes = bytes(b"B"[0] if b else b"I"[0]
+                           for b in _host(lev.is_B))
+            levels.append(LevelSection(high, motion, ftypes))
+        return VideoStream(cfg, pending["reversible"], pending["delta"],
+                           low, levels, true_dims=pending["true_dims"],
+                           true_frames=pending["true_frames"])
 
 
 def _load_libraries(device) -> None:

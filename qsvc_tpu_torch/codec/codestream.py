@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import CodecConfig
+from ..utils import trace
 from . import fast, frame_codec
 from .frame_codec import EncodedBlock, EncodedFrame, slope_to_threshold, \
     threshold_to_slope
@@ -328,37 +329,38 @@ class VideoStream:
     # ------------------------------------------------------- serialization
 
     def to_bytes(self) -> bytes:
-        out = bytearray()
-        out += MAGIC
-        c = self.cfg
-        out += struct.pack("<BHHBBHBffBHB",
-                           VERSION, c.pixels_in_x, c.pixels_in_y, c.TRLs,
-                           c.SRLs, c.GOPs, c.auto_block_size,
-                           c.update_factor, self.delta,
-                           1 if self.reversible else 0,
-                           c.search_range, c.nLayers)
-        out += struct.pack("<BBBf", c.subpixel_accuracy,
-                           c.block_overlaping, c.auto_block_size_min,
-                           c.FPS)
-        tw, th = self.true_dims or (c.pixels_in_x, c.pixels_in_y)
-        _wvarint(out, tw)
-        _wvarint(out, th)
-        _wvarint(out, self.true_frames
-                 if self.true_frames is not None else c.pictures)
-        _wvarint(out, len(self.low))
-        for fr in self.low:
-            for comp in ("y", "u", "v"):
-                _write_frame(out, fr[comp])
-        _wvarint(out, len(self.levels))
-        for lev in self.levels:
-            _wvarint(out, len(lev.high))
-            out += lev.frame_types
-            for fr in lev.high:
+        with trace.stage("stream.serialize"):
+            out = bytearray()
+            out += MAGIC
+            c = self.cfg
+            out += struct.pack("<BHHBBHBffBHB",
+                               VERSION, c.pixels_in_x, c.pixels_in_y, c.TRLs,
+                               c.SRLs, c.GOPs, c.auto_block_size,
+                               c.update_factor, self.delta,
+                               1 if self.reversible else 0,
+                               c.search_range, c.nLayers)
+            out += struct.pack("<BBBf", c.subpixel_accuracy,
+                               c.block_overlaping, c.auto_block_size_min,
+                               c.FPS)
+            tw, th = self.true_dims or (c.pixels_in_x, c.pixels_in_y)
+            _wvarint(out, tw)
+            _wvarint(out, th)
+            _wvarint(out, self.true_frames
+                     if self.true_frames is not None else c.pictures)
+            _wvarint(out, len(self.low))
+            for fr in self.low:
                 for comp in ("y", "u", "v"):
                     _write_frame(out, fr[comp])
-            for m in lev.motion:
-                _write_motion(out, m)
-        return bytes(out)
+            _wvarint(out, len(self.levels))
+            for lev in self.levels:
+                _wvarint(out, len(lev.high))
+                out += lev.frame_types
+                for fr in lev.high:
+                    for comp in ("y", "u", "v"):
+                        _write_frame(out, fr[comp])
+                for m in lev.motion:
+                    _write_motion(out, m)
+            return bytes(out)
 
     @classmethod
     def from_bytes(cls, data: bytes) -> "VideoStream":

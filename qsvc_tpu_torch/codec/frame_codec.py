@@ -358,10 +358,13 @@ def encode_frames_dispatch_sparse(planes: torch.Tensor, levels: int,
     tpl = _tile_template(H, W, levels, cb)
     ms = _slope_floor(min_threshold, N, len(tpl), tpl, reversible,
                       float(delta), coder)
+    # pageable copies: each waits for the work queued on the stream
+    with trace.stage("texture_args_upload"):
+        delta_dev = torch.tensor(delta, dtype=torch.float32, device=dev)
+        ms_dev = torch.as_tensor(ms, device=dev)
     compact, maxabs, keep, ovf = _encode_device_jit(
-        planes, torch.tensor(delta, dtype=torch.float32, device=dev),
-        *_tile_dims_on(H, W, levels, cb, N, dev),
-        torch.as_tensor(ms, device=dev), levels, reversible, cb)
+        planes, delta_dev, *_tile_dims_on(H, W, levels, cb, N, dev),
+        ms_dev, levels, reversible, cb)
     return (planes, compact, maxabs, keep, ovf, levels, reversible,
             float(delta), cb)
 

@@ -27,7 +27,6 @@ ranks, or for ranks that share one card):
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import pickle
 import tempfile
@@ -316,9 +315,9 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
     dev = torch.device("cuda", rank) if device == "cuda" else torch.device(
         device)
     initialize(dev, init_method=f"file://{store}", world_size=n, rank=rank)
+    log = trace.RunLog()
     try:
-        log = pmesh.HaloLog()
-        mesh = dataclasses.replace(make_gop_mesh(dev), halo_log=log)
+        mesh = make_gop_mesh(dev)
         vid = synthetic_video(cfg.pictures, cfg.pixels_in_y,
                               cfg.pixels_in_x, seed=0)
         planes = shard_video_gops(vid, cfg, mesh)
@@ -329,18 +328,21 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
                 torch.cuda.synchronize(dev)
         cuda_lib.reset_launches()
         step()                                   # warm-up
-        log.clear()
         dist.barrier(group=mesh.group)
+        trace.set_run_log(log)
         t0 = time.perf_counter()
         for _ in range(reps):
             step()
         dt = (time.perf_counter() - t0) / reps
-        out = {"seconds": dt, "halo_seconds": log.seconds() / reps,
-               "halo_bytes": (log.sent + log.received) // reps,
+        trace.set_run_log(None)
+        halo = pmesh.halo_totals(log.records)
+        out = {"seconds": dt, "halo_seconds": halo["seconds"] / reps,
+               "halo_bytes": (halo["sent"] + halo["received"]) // reps,
                "launches": dict(cuda_lib.launches)}
         end_group()
         return out
     finally:
+        trace.set_run_log(None)
         if dist.is_initialized():           # a failed rank: no barrier
             dist.destroy_process_group()
 

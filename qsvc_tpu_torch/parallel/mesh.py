@@ -15,66 +15,28 @@ communication.  The device is always the one passed.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 
-class HaloLog:
-    """What the halo exchanges of a mesh cost: the payload bytes this rank
-    sent and received, and each exchange's span.  On a CUDA device a span
-    is two events on the current stream around the exchange (what the
-    compute stream waits for it, the peer's lateness included); on the
-    CPU, two host clock readings."""
+#: the device span ``parallel.transform`` opens around each halo exchange
+HALO_SPAN = "halo.exchange"
 
-    def __init__(self):
-        self.sent = 0
-        self.received = 0
-        self._spans: List[Tuple] = []
 
-    def start(self, device: torch.device):
-        """Open a span on ``device``; returns the token :meth:`stop`
-        takes."""
-        if device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(device))
-            return device, ev
-        return device, time.perf_counter()
-
-    def stop(self, token, sent: int, received: int) -> None:
-        """Close the span of ``token``, adding the exchange's bytes."""
-        device, begin = token
-        if device.type == "cuda":
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(torch.cuda.current_stream(device))
-        else:
-            end = time.perf_counter()
-        self._spans.append((begin, end))
-        self.sent += sent
-        self.received += received
-
-    @property
-    def exchanges(self) -> int:
-        return len(self._spans)
-
-    def seconds(self) -> float:
-        """The spans' total seconds (waits for the CUDA events)."""
-        total = 0.0
-        for begin, end in self._spans:
-            if isinstance(begin, torch.cuda.Event):
-                end.synchronize()
-                total += begin.elapsed_time(end) / 1e3
-            else:
-                total += end - begin
-        return total
-
-    def clear(self) -> None:
-        self.sent = self.received = 0
-        self._spans.clear()
+def halo_totals(records: List[dict]) -> dict:
+    """What the halo exchanges in ``records`` (a ``utils.trace`` run log's)
+    cost: their count, the payload bytes sent and received, and their
+    summed device seconds (on a CUDA device the time the compute stream
+    waited for each exchange, the peer's lateness included)."""
+    spans = [r for r in records if r.get("device_stage") == HALO_SPAN]
+    return {"exchanges": len(spans),
+            "sent": sum(r["sent"] for r in spans),
+            "received": sum(r["received"] for r in spans),
+            "seconds": sum(r["device_seconds"] for r in spans)}
 
 
 @dataclass(frozen=True)
@@ -88,9 +50,6 @@ class GopMesh:
     #: halo frames go through host memory (gloo takes CPU tensors only);
     #: False for nccl, which sends CUDA tensors as they are
     host_staged: bool = True
-    #: where the halo exchanges are logged, if anywhere (a caller that
-    #: measures them sets one with ``dataclasses.replace``)
-    halo_log: Optional[HaloLog] = None
 
 
 def make_mesh(device="cuda", group=None) -> GopMesh:

@@ -43,7 +43,8 @@ from ..config import CodecConfig
 from ..mctf import transform, update
 from ..mctf.transform import MCTFStream, Planes
 from ..ops import dwt2d
-from .mesh import GopMesh
+from ..utils import trace
+from .mesh import HALO_SPAN, GopMesh
 
 
 def _shift(x: torch.Tensor, mesh: GopMesh, step: int
@@ -54,30 +55,31 @@ def _shift(x: torch.Tensor, mesh: GopMesh, step: int
     or None on the rank with no such neighbour.  The frame travels as its
     bytes: nccl takes no int16 tensor.  With nccl the wait orders the
     current stream after the exchange and does not block the host; the
-    caching allocator keeps both buffers until the exchange is done."""
+    caching allocator keeps both buffers until the exchange is done.
+    Under a ``utils.trace`` run log the exchange is the device span
+    ``halo.exchange`` with the payload bytes ``sent`` and ``received``."""
     dst, src = mesh.rank + step, mesh.rank - step
     if mesh.size == 1:
         return None
-    log = mesh.halo_log
-    begin = None if log is None else log.start(x.device)
-    host = torch.device("cpu") if mesh.host_staged else x.device
-    payload = x.to(host).contiguous().view(torch.uint8)
-    ops = []
-    if 0 <= dst < mesh.size:
-        ops.append(dist.P2POp(dist.isend, payload, group=mesh.group,
-                              group_peer=dst))
-    got = None
-    if 0 <= src < mesh.size:
-        got = torch.empty_like(payload)
-        ops.append(dist.P2POp(dist.irecv, got, group=mesh.group,
-                              group_peer=src))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    out = None if got is None else got.view(x.dtype).to(x.device)
-    if log is not None:
-        log.stop(begin, payload.numel() if 0 <= dst < mesh.size else 0,
-                 0 if got is None else got.numel())
-    return out
+    nbytes = x.numel() * x.element_size()
+    sends, receives = 0 <= dst < mesh.size, 0 <= src < mesh.size
+    with trace.device_stage(HALO_SPAN, x.device,
+                            sent=nbytes if sends else 0,
+                            received=nbytes if receives else 0):
+        host = torch.device("cpu") if mesh.host_staged else x.device
+        payload = x.to(host).contiguous().view(torch.uint8)
+        ops = []
+        if sends:
+            ops.append(dist.P2POp(dist.isend, payload, group=mesh.group,
+                                  group_peer=dst))
+        got = None
+        if receives:
+            got = torch.empty_like(payload)
+            ops.append(dist.P2POp(dist.irecv, got, group=mesh.group,
+                                  group_peer=src))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return None if got is None else got.view(x.dtype).to(x.device)
 
 
 def _right_shift(x, mesh):

@@ -92,7 +92,13 @@ def encode_stages(video: Video, cfg: CodecConfig, device, split: bool
     encode_device = (_split_encode_device(device) if split else
                      synced("encode_device_jit",
                             frame_codec._encode_device_jit, device))
-    swaps = [(api, "_upload", synced("upload", api._upload, device)),
+    upload = api._upload
+
+    def synced_upload(*args):          # the API's "upload" stage times it
+        out = upload(*args)
+        sync(device)
+        return out
+    swaps = [(api, "_upload", synced_upload),
              (transform, "analyze_jit",
               synced("analyze_jit", transform.analyze_jit, device)),
              (frame_codec, "_encode_device_jit", encode_device),

@@ -1,1 +1,1 @@
-from .trace import RunLog, set_run_log, stage  # noqa: F401
+from .trace import RunLog, device_stage, set_run_log, stage  # noqa: F401

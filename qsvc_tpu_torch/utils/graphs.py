@@ -32,6 +32,10 @@ device (``api.expand_gops`` decodes in two threads), and captures use
 during a capture is legal.  Calls on different streams are ordered by an
 event recorded after each call's copy-out.
 
+Tracing: under a ``utils.trace`` run log every call is the device span
+``graph.<fn name>`` (copy-in, replay and copy-out on the card; the eager
+run on the CPU), and a capture the host span ``graphs.capture``.
+
 Launches: ``ops.cuda_lib.launches`` counts kernel launches.  A capture
 launches nothing, so the wrappers' counts during a capture go to the
 graph's own record and each replay adds that record: the counter keeps
@@ -60,6 +64,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..ops import cuda_lib
+from . import trace
 
 #: graphs kept per device (the flagship encode and decode use about 13)
 MAX_GRAPHS = 32
@@ -183,10 +188,12 @@ def _run(fn: Callable, leaves: List[Any], spec):
     """One call of the captured ``fn`` on its flattened arguments: eager
     without a CUDA tensor, else the replay of its key's graph (captured
     first if the key is new)."""
+    name = "graph." + fn.__name__
     devices = {x.device for x in leaves if isinstance(x, torch.Tensor)}
     if not any(d.type == "cuda" for d in devices):
         args, kwargs = _unflatten(spec, iter(leaves))
-        return fn(*args, **dict(kwargs))
+        with trace.device_stage(name, "cpu"):
+            return fn(*args, **dict(kwargs))
     if len(devices) > 1:
         raise ValueError(f"{fn.__qualname__}: tensors on "
                          f"{sorted(map(str, devices))}; a captured "
@@ -199,8 +206,10 @@ def _run(fn: Callable, leaves: List[Any], spec):
         if dev.done is not None:
             stream.wait_event(dev.done)
         entry = dev.graphs.get(key)
-        if entry is None:
-            entry = _capture(fn, leaves, spec, dev)
+        fresh = entry is None
+        if fresh:
+            with trace.stage("graphs.capture", program=fn.__name__):
+                entry = _capture(fn, leaves, spec, dev)
             dev.graphs[key] = entry
             while len(dev.graphs) > MAX_GRAPHS:
                 if dev.done is not None:
@@ -208,14 +217,16 @@ def _run(fn: Callable, leaves: List[Any], spec):
                 dev.graphs.popitem(last=False)
         else:
             dev.graphs.move_to_end(key)
-            tensors = (x for x in leaves if isinstance(x, torch.Tensor))
-            for buf, x in zip(entry.inputs, tensors):
-                buf.copy_(x)
-        entry.graph.replay()
+        with trace.device_stage(name, device):
+            if not fresh:       # a capture copied its inputs already
+                tensors = (x for x in leaves if isinstance(x, torch.Tensor))
+                for buf, x in zip(entry.inputs, tensors):
+                    buf.copy_(x)
+            entry.graph.replay()
+            out = [x.clone() if isinstance(x, torch.Tensor) else x
+                   for x in entry.outputs]
         cuda_lib.launches.update(entry.launches)
         entry.stats["replays"] += 1
-        out = [x.clone() if isinstance(x, torch.Tensor) else x
-               for x in entry.outputs]
         dev.done = torch.cuda.Event()
         dev.done.record(stream)
     return _unflatten(entry.out_spec, iter(out))

@@ -430,21 +430,29 @@ def test_run_ranks_stops_the_peers_of_a_failed_rank():
 
 def _shift_rank(rank, n, store, host_staged):
     """Both shifts of an int16 and an int32 frame with negative values;
-    returns what arrived and the halo log's counts."""
+    returns what arrived and the run log's halo totals."""
     import dataclasses
+
+    from qsvc_tpu_torch.utils import trace
     pdist.initialize("cpu", init_method=f"file://{store}", world_size=n,
                      rank=rank)
-    log = pmesh.HaloLog()
     mesh = dataclasses.replace(pdist.make_gop_mesh("cpu"),
-                               host_staged=host_staged, halo_log=log)
+                               host_staged=host_staged)
+    log = trace.RunLog()
+    trace.set_run_log(log)
     out = {}
-    for dtype in (np.int16, np.int32):
-        x = torch.from_numpy(_halo_frame(rank, dtype))
-        for step in (1, -1):
-            got = ptransform._shift(x, mesh, step)
-            out[dtype.__name__, step] = None if got is None else (
-                str(got.dtype), got.numpy())
-    out["log"] = (log.exchanges, log.sent, log.received, log.seconds())
+    try:
+        for dtype in (np.int16, np.int32):
+            x = torch.from_numpy(_halo_frame(rank, dtype))
+            for step in (1, -1):
+                got = ptransform._shift(x, mesh, step)
+                out[dtype.__name__, step] = None if got is None else (
+                    str(got.dtype), got.numpy())
+    finally:
+        trace.set_run_log(None)
+    halo = pmesh.halo_totals(log.records)
+    out["log"] = (halo["exchanges"], halo["sent"], halo["received"],
+                  halo["seconds"])
     pdist.end_group()
     return out
 

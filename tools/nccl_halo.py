@@ -17,9 +17,10 @@ The video is the flagship's 4 GOPs (1920x1088, TRLs 5, block 64, search
 In each run every rank calls ``compress_distributed`` once to warm up and
 once timed, and returns the SHA-256 of its stream, its seconds with the
 seconds of each traced stage (``utils.trace``), the kernel launches of
-the timed call, the timed call's halo exchanges (``parallel.mesh.HaloLog``:
-their count, payload bytes sent and received, and seconds between CUDA
-events around each exchange), the seconds of one more
+the timed call, the timed call's halo exchanges (its ``halo.exchange``
+device spans, ``parallel.mesh.halo_totals``: their count, payload bytes
+sent and received, and seconds between CUDA events around each
+exchange), the seconds of one more
 ``analyze_sharded`` of its chunk alone, and its card's peak reserved
 memory over the run.  This
 process then runs the sequential counterparts on ``cuda:0``
@@ -35,7 +36,6 @@ the scaling) is what ``chip_smoke.py`` runs where it sees several cards.
 """
 
 import argparse
-import dataclasses
 import hashlib
 import json
 import os
@@ -81,15 +81,17 @@ def _to_bytes(stream) -> bytes:
 
 
 def _traced(fn):
-    """``fn()``, its wall seconds and the seconds of each stage it timed
-    (``qsvc_tpu_torch.utils.trace``)."""
+    """``fn()``, its wall seconds, the seconds of each stage it timed and
+    its halo exchanges' totals (``qsvc_tpu_torch.utils.trace``)."""
+    from qsvc_tpu_torch.parallel import mesh as pmesh
     from qsvc_tpu_torch.utils import trace
     log = trace.RunLog()
     prev = trace.set_run_log(log)
     try:
         t0 = time.perf_counter()
         out = fn()
-        return out, time.perf_counter() - t0, log.summary()
+        return (out, time.perf_counter() - t0, log.summary(),
+                pmesh.halo_totals(log.records))
     finally:
         trace.set_run_log(prev)
 
@@ -100,14 +102,12 @@ def _rank(rank, n, store):
     import torch
     from qsvc_tpu_torch.ops import cuda_lib
     from qsvc_tpu_torch.parallel import distributed as pdist
-    from qsvc_tpu_torch.parallel import mesh as pmesh
     from qsvc_tpu_torch.parallel import transform as ptransform
     dev = torch.device("cuda", rank)
     pdist.initialize(dev, init_method=f"file://{store}", world_size=n,
                      rank=rank)
     try:
-        log = pmesh.HaloLog()
-        mesh = dataclasses.replace(pdist.make_gop_mesh(dev), halo_log=log)
+        mesh = pdist.make_gop_mesh(dev)
         out = {}
         for name, (kw, reversible) in RUNS.items():
             cfg = _flagship(**kw)
@@ -121,16 +121,15 @@ def _rank(rank, n, store):
             torch.cuda.reset_peak_memory_stats(dev)
             warm = encode()
             cuda_lib.reset_launches()
-            log.clear()
             torch.distributed.barrier(device_ids=[rank])
-            data, seconds, stages = _traced(encode)
+            data, seconds, stages, halo = _traced(encode)
             res = {"sha": _sha(data), "bytes": len(data),
                    "warm_up_same": warm == data, "seconds": seconds,
                    "stages": stages, "launches": dict(cuda_lib.launches),
-                   "halo_exchanges": log.exchanges,
-                   "halo_bytes_sent": log.sent,
-                   "halo_bytes_received": log.received,
-                   "halo_seconds": log.seconds()}
+                   "halo_exchanges": halo["exchanges"],
+                   "halo_bytes_sent": halo["sent"],
+                   "halo_bytes_received": halo["received"],
+                   "halo_seconds": halo["seconds"]}
             t0 = time.perf_counter()      # the sharded MCTF alone
             st = ptransform.analyze_sharded(
                 *pdist.shard_video_gops(vid, cfg, mesh), cfg, mesh)
@@ -166,7 +165,7 @@ def _sequential(name, n, dev):
         torch.cuda.synchronize(dev)
         return _to_bytes(vs)
     encode()
-    data, seconds, stages = _traced(encode)
+    data, seconds, stages, _ = _traced(encode)
     out = {"sha": _sha(data), "bytes": len(data), "seconds": seconds,
            "stages": stages}
     if reversible:
