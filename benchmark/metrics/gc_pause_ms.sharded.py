@@ -1,9 +1,5 @@
 """``gc_pause_ms.sharded``: per sharded call, rank 0's seconds in
 Python's garbage collector (the program's ``gc.collect`` spans), in
-ms."""
+ms: ``gc_pause_ms``'s reader over the sharded cell's run."""
 
-from benchmark.metrics._spans import host_ms
-
-
-def read(run):
-    return host_ms(run, "gc.collect")
+from benchmark.metrics.gc_pause_ms import read  # noqa: F401

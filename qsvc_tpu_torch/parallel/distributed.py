@@ -315,7 +315,11 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
     dev = torch.device("cuda", rank) if device == "cuda" else torch.device(
         device)
     initialize(dev, init_method=f"file://{store}", world_size=n, rank=rank)
-    log = trace.RunLog()
+    # only the halo exchanges' spans, so that the timed calls carry no
+    # other tracing; installed before the warm-up, so that the log's
+    # device anchor is taken outside them
+    log = trace.RunLog(only=(pmesh.HALO_SPAN,))
+    trace.set_run_log(log)
     try:
         mesh = make_gop_mesh(dev)
         vid = synthetic_video(cfg.pictures, cfg.pixels_in_y,
@@ -328,8 +332,8 @@ def _scaling_rank(rank: int, n: int, store: str, reps: int,
                 torch.cuda.synchronize(dev)
         cuda_lib.reset_launches()
         step()                                   # warm-up
+        log.clear()
         dist.barrier(group=mesh.group)
-        trace.set_run_log(log)
         t0 = time.perf_counter()
         for _ in range(reps):
             step()

@@ -217,14 +217,21 @@ def _run(fn: Callable, leaves: List[Any], spec):
                 dev.graphs.popitem(last=False)
         else:
             dev.graphs.move_to_end(key)
+        # everything the copies need is allocated first: inside the
+        # device span the host only queues the copy-in, the replay and the
+        # copy-out, so that no allocation or collection lands between
+        # them while the card waits
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        outs = [x for x in entry.outputs if isinstance(x, torch.Tensor)]
+        copies = [torch.empty_like(x) for x in outs]
         with trace.device_stage(name, device):
             if not fresh:       # a capture copied its inputs already
-                tensors = (x for x in leaves if isinstance(x, torch.Tensor))
-                for buf, x in zip(entry.inputs, tensors):
-                    buf.copy_(x)
+                torch._foreach_copy_(entry.inputs, tensors)
             entry.graph.replay()
-            out = [x.clone() if isinstance(x, torch.Tensor) else x
-                   for x in entry.outputs]
+            torch._foreach_copy_(copies, outs)
+        it = iter(copies)
+        out = [next(it) if isinstance(x, torch.Tensor) else x
+               for x in entry.outputs]
         cuda_lib.launches.update(entry.launches)
         entry.stats["replays"] += 1
         dev.done = torch.cuda.Event()

@@ -163,6 +163,104 @@ def test_cuda_device_spans_on_the_host_clock(monkeypatch, log):
     assert b["ts"] == pytest.approx(t + 1.5)
 
 
+def _stand_in_card(monkeypatch, reserved):
+    """A stand-in card 0 in use by the process, holding ``reserved``
+    bytes."""
+    card = _Card()
+    monkeypatch.setattr(torch.cuda, "Event", card.Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", card.synchronize)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: reserved)
+    return card
+
+
+@pytest.mark.parametrize("reserved", [0, 1 << 20])
+def test_installing_a_log_anchors_the_current_card(monkeypatch, reserved):
+    """A log installed while the program holds memory on the current card
+    takes that card's anchor then, so that its spans take none (no
+    synchronise after the install); with nothing on the card the anchor
+    waits for the first span."""
+    card = _stand_in_card(monkeypatch, reserved)
+    dev = torch.device("cuda", 0)
+    log = trace.RunLog()
+    trace.set_run_log(log)
+    try:
+        assert (dev in log._anchors) == bool(reserved)
+        assert card.syncs == (1 if reserved else 0)
+        for k in range(3):
+            with trace.device_stage("span", dev, k=k):
+                card.now += 0.5
+        assert card.syncs == 1
+    finally:
+        trace.set_run_log(None)
+    assert [r["k"] for r in _named(log, "device_stage")] == [0, 1, 2]
+
+
+def test_clear_keeps_the_anchor(monkeypatch):
+    """``clear`` drops the records so far, the pending device spans with
+    them, and keeps the anchor: spans after it take no synchronise and
+    sit on the same clock."""
+    card = _stand_in_card(monkeypatch, 1 << 20)
+    dev = torch.device("cuda", 0)
+    log = trace.RunLog()
+    trace.set_run_log(log)
+    try:
+        with trace.stage("warm-up"):
+            with trace.device_stage("span", dev, k=0):
+                card.now = 2.0
+        anchor = log._anchors[dev]
+        log.clear()
+        assert log._pending == []
+        assert not _named(log, "device_stage")
+        with trace.device_stage("span", dev, k=1):
+            card.now = 3.0
+    finally:
+        trace.set_run_log(None)
+    (rec,) = _named(log, "device_stage")
+    assert "warm-up" not in [r["stage"] for r in _named(log, "stage")]
+    assert rec["k"] == 1 and log._anchors[dev] is anchor
+    assert rec["start"] == pytest.approx(anchor[1] + 2.0)
+    assert rec["device_seconds"] == pytest.approx(1.0)
+    assert card.syncs == 1
+
+
+def test_a_log_keeps_only_its_names(monkeypatch):
+    """A log made with ``only`` records just those spans; the others make
+    no record and no CUDA event, and the collector's hook stays out of
+    ``gc.callbacks`` unless ``gc.collect`` is kept."""
+    before = list(gc.callbacks)
+
+    def no_event(*args, **kwargs):
+        raise AssertionError("a CUDA event was made for a span not kept")
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    log = trace.RunLog(only=("halo.exchange",))
+    trace.set_run_log(log)
+    try:
+        assert gc.callbacks == before
+        with trace.stage("host"):
+            with trace.device_stage("graph.f", "cuda:0"):
+                pass
+            with trace.device_stage("halo.exchange", "cpu", sent=8):
+                pass
+        gc.collect()
+    finally:
+        trace.set_run_log(None)
+    (rec,) = log.records
+    assert rec["device_stage"] == "halo.exchange" and rec["sent"] == 8
+    kept = trace.RunLog(only=("gc.collect",))
+    trace.set_run_log(kept)
+    try:
+        assert gc.callbacks.count(trace._on_gc) == 1
+    finally:
+        trace.set_run_log(None)
+    assert gc.callbacks == before
+
+
 def test_gc_pause_is_a_host_span():
     before = list(gc.callbacks)
     log = trace.RunLog()

@@ -80,17 +80,25 @@ def _to_bytes(stream) -> bytes:
         return stream.to_bytes()
 
 
-def _traced(fn):
-    """``fn()``, its wall seconds, the seconds of each stage it timed and
-    its halo exchanges' totals (``qsvc_tpu_torch.utils.trace``)."""
+def _traced(fn, between=lambda: None):
+    """``fn()`` once to warm up and, after ``between()``, once timed,
+    under one run log (``qsvc_tpu_torch.utils.trace``) installed before
+    the warm-up, so that its device anchor and the collector's hook are
+    set up outside the timed call.  Returns the warm-up's result, the
+    timed call's result, its wall seconds, the seconds of each stage it
+    timed and its halo exchanges' totals."""
     from qsvc_tpu_torch.parallel import mesh as pmesh
     from qsvc_tpu_torch.utils import trace
     log = trace.RunLog()
     prev = trace.set_run_log(log)
     try:
+        warm = fn()
+        between()
+        log.clear()
         t0 = time.perf_counter()
         out = fn()
-        return (out, time.perf_counter() - t0, log.summary(),
+        seconds = time.perf_counter() - t0
+        return (warm, out, seconds, log.summary(),
                 pmesh.halo_totals(log.records))
     finally:
         trace.set_run_log(prev)
@@ -118,11 +126,11 @@ def _rank(rank, n, store):
                                                 reversible=reversible)
                 torch.cuda.synchronize(dev)
                 return _to_bytes(vs)
+            def between():
+                cuda_lib.reset_launches()
+                torch.distributed.barrier(device_ids=[rank])
             torch.cuda.reset_peak_memory_stats(dev)
-            warm = encode()
-            cuda_lib.reset_launches()
-            torch.distributed.barrier(device_ids=[rank])
-            data, seconds, stages, halo = _traced(encode)
+            warm, data, seconds, stages, halo = _traced(encode, between)
             res = {"sha": _sha(data), "bytes": len(data),
                    "warm_up_same": warm == data, "seconds": seconds,
                    "stages": stages, "launches": dict(cuda_lib.launches),
@@ -164,8 +172,7 @@ def _sequential(name, n, dev):
         vs = api.compress(vid, cfg, reversible=reversible, device=dev)
         torch.cuda.synchronize(dev)
         return _to_bytes(vs)
-    encode()
-    data, seconds, stages, _ = _traced(encode)
+    _, data, seconds, stages, _ = _traced(encode)
     out = {"sha": _sha(data), "bytes": len(data), "seconds": seconds,
            "stages": stages}
     if reversible:
