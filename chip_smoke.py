@@ -33,7 +33,10 @@ Phases, one line each; any failure exits non-zero before the last line:
    a = 3 the plain version runs on 2 of the 8 pairs, for memory); then
    K2 and K3 at the calls of a decode reduced by SS at d = 1-4 (blocks of
    32, 16, 8 and 4 on frames of 1088x1920 >> d), timed beside their
-   bounds;
+   bounds; then K5 (the bp R-D simulation) on both texture stacks of
+   phase 4's first GOP against its plain version: equal keep masks at
+   the config's slope floor and smax within rel 1e-5, kernel and plain
+   times per GOP beside the bound;
 3. correctness on the card: the MCTF analysis and synthesis of a small
    sequence on the card, eager and as the captured programs
    ``analyze_jit``/``synthesize_jit``, equal the plain CPU run,
@@ -44,7 +47,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    staged on the card, encoded (warm-up + timed) and decoded to
    device-resident uint8 through the API (so through its captured
    programs), with the kernel launch counts of that run and of the timed
-   encode and decode, and the peak device memory;
+   encode and decode (K5 twice per encoded GOP, or the phase fails), and
+   the peak device memory;
 5a. the sharded flagship on one rank (``qsvc_tpu_torch.parallel``): the
    phase 4 configuration as one 65-frame sequence, ``compress_distributed``
    byte-identical to ``api.compress`` and ``encode_gops_distributed`` to
@@ -131,10 +135,11 @@ Phases, one line each; any failure exits non-zero before the last line:
    of the same GOP in that process, then ``torch.profiler`` over the
    4-GOP ``compress_chunks``) and ``profile_decode --loops 5`` (the
    staged decode's stages over 5 loops, then the profiler over one); each
-   profile must have seen device time, a busy share in (0, 1], K1, K2
-   and K3 (encode: 14, 4 and 4 a GOP) and K2 and K3 (decode: 4 and 4 a
-   GOP) among its device operations as often as the launch counters
-   counted them, and trace stages that sum to no more than the window's
+   profile must have seen device time, a busy share in (0, 1], K1, K2,
+   K3 and K5 (encode: 14, 4, 4 and 2 a GOP) and K2 and K3 (decode: 4 and
+   4 a GOP) among its device operations as often as the launch counters
+   counted them, and outermost trace stages (a stage nested in another
+   counted once, in its parent) that sum to no more than the window's
    wall; their top 5 operations and longest idle gaps are printed.
 
 The whole run takes 190-400 s on an H100 (phase 9 about 36 s).
@@ -154,8 +159,11 @@ the larger of the bytes it must move (each input read once, each output
 written once) over the H100's 3.35 TB/s, and its operations over their
 rate below: int32 for K2-K4, and for K1 two fp32 lane operations per SAD
 term (a subtraction and an addition of an absolute value, exact in fp32
-while no int16 difference wraps).  No single PyTorch call computes
-K1-K4, so ``library_ms`` is null.
+while no int16 difference wraps); for K5 one int32 operation per row and
+bit-plane below each block's msbs, a floor that leaves its bytes the
+bound.  K5 is held to the plain version's keep decisions (its JSON entry
+has ``keep_differing`` and ``smax_max_rel_err`` for ``max_abs_err``).
+No single PyTorch call computes K1-K5, so ``library_ms`` is null.
 """
 
 import collections
@@ -181,12 +189,20 @@ KERNEL_SOURCES = {
                    "qsvc_tpu/ops/pallas_mc.py:224"),
     "mc_update1": ("qsvc_tpu_torch/csrc/mc.cu",
                    "qsvc_tpu/ops/pallas_mc.py:297"),
+    "bp_slope": ("qsvc_tpu_torch/csrc/bp_slope.cu",
+                 "none: qsvc_tpu/codec/bp_device.py:67 is plain jnp"),
 }
 #: the names phase 2 prints for the MC kernels
 _SHORT = {"mc_predict": "K2", "mc_update2": "K3", "mc_update1": "K4"}
 #: the kernels the sequential flagship (phase 4) must launch; K4 runs on
 #: the sharded path (phase 5a)
-SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2")
+SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2", "bp_slope")
+#: K5's launches per encoded GOP: one per texture stack (luma, chroma)
+BP_SLOPE_PER_GOP = 2
+#: K5 against the plain version: float32 sums of squares round in the
+#: plain version, so smax agrees to this relative error (keep masks
+#: exactly)
+BP_SLOPE_RTOL = 1e-5
 #: H100 SXM device memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: int32 operations per second outside the tensor cores: 132 SMs x 64
@@ -495,12 +511,13 @@ def phase_kernel_parity(dev):
         results["mc_predict"][1:]
     for name, err in _ss_decode_calls(dev).items():
         results[name] = (max(results[name][0], err),) + results[name][1:]
+    results["bp_slope"] = _k5_parity(dev)
 
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
         raise SystemExit(f"phase 2 kernel parity FAILED: {bad}")
     print("phase 2 kernel parity: ok (K1, K2, K3, K4 exact vs plain "
-          "versions)", flush=True)
+          "versions; K5 keeps the plain version's blocks)", flush=True)
     return results
 
 
@@ -617,6 +634,76 @@ def _flagship_vectors(dev):
               f"{int(lev.mv.abs().max())} at search range {sr}",
               flush=True)
     return [lev.mv.contiguous() for lev in levels]
+
+
+def _flagship_texture_stacks(dev):
+    """The arguments of both ``_encode_device_jit`` calls (luma and chroma
+    stack) of phase 4's first GOP, recorded during ``api.compress``."""
+    from qsvc_tpu_torch import api
+    from qsvc_tpu_torch.codec import frame_codec
+    from qsvc_tpu_torch.io import synthetic_video
+    cfg = _flagship_cfg(GOPs=1)
+    vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                          seed=0)
+    calls, original = [], frame_codec._encode_device_jit
+
+    def record(*args):
+        calls.append(args)
+        return original(*args)
+    frame_codec._encode_device_jit = record
+    try:
+        api.compress(vid, cfg, device=dev)
+    finally:
+        frame_codec._encode_device_jit = original
+    return calls
+
+
+def _k5_parity(dev):
+    """K5 against the plain version on both stacks of phase 4's first GOP:
+    keep masks at the config's slope floor must be equal and smax within
+    :data:`BP_SLOPE_RTOL`; kernel and plain times per GOP (both stacks)
+    beside the bound.  Returns (keep decisions that differ, ms, plain_ms,
+    (bound_ms, bound_by), smax's largest relative error)."""
+    from qsvc_tpu_torch.codec import bp_device, frame_codec
+    from qsvc_tpu_torch.ops import cuda_bp
+    differ, rel, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0.0, 0, 0
+    for name, (planes, delta, th, tw, floor, levels, rev, cb) in zip(
+            ("luma", "chroma"), _flagship_texture_stacks(dev)):
+        tiles, maxabs, _ = frame_codec._dwt_quant_tiles(planes, levels, rev,
+                                                        delta, cb)
+        flat = tiles.reshape(-1, cb, cb)
+        got, d0 = cuda_bp.bp_slope(flat, th, tw)
+        want, _ = bp_device.bp_max_slope_plain(flat, th, tw)
+        keep = [((maxabs > 0) & (s.reshape(maxabs.shape) >= floor))
+                for s in (got, want)]
+        n_diff = int((keep[0] != keep[1]).sum())
+        err = float(((got - want).abs() /
+                     want.abs().clamp(min=1e-30)).max())
+        differ += n_diff
+        rel = max(rel, err)
+        k_ms = _cuda_ms(lambda: cuda_bp.bp_slope(flat, th, tw))
+        p_ms = _cuda_ms(lambda: bp_device.bp_max_slope_plain(flat, th, tw),
+                        reps=3, batch=2)
+        ms += k_ms
+        plain_ms += p_ms
+        # each tile read once, dims read, (smax, d0) written; at least
+        # one operation per row and bit-plane below a block's msbs
+        nbytes += _nbytes(flat, th, tw, got, d0)
+        msbs = torch.floor(torch.log2(maxabs.reshape(-1).clamp(min=1)
+                                      .to(torch.float64))) + 1
+        ops += int(((maxabs.reshape(-1) > 0) * msbs).sum()) * cb
+        print(f"  K5 {name} stack {tuple(flat.shape)}: kernel {k_ms:.4f} ms"
+              f", plain {p_ms:.4f} ms, kept {int(keep[0].sum())} of "
+              f"{keep[0].numel()}, keep decisions differing {n_diff}, "
+              f"smax max rel err {err:.3e}", flush=True)
+    bound = _bound(nbytes, ops)
+    print(f"  K5 per GOP: kernel {ms:.4f} ms ({bound[0] / ms:.0%} of its "
+          f"{bound[0]:.4f} ms {bound[1]} bound), plain {plain_ms:.4f} ms",
+          flush=True)
+    if rel > BP_SLOPE_RTOL:
+        raise SystemExit(f"phase 2: K5's smax differs from the plain "
+                         f"version by {rel:.3e} > {BP_SLOPE_RTOL}")
+    return differ, ms, plain_ms, bound, rel
 
 
 def _scaling_level_calls(dev, rand_planes):
@@ -820,6 +907,7 @@ def _staged_run(dev, cfg, title, phase):
     py, pu, pv = video_psnr(vid, rec)
     bpp = sum(len(b) for b in blobs) * 8 / (vid.y.size * 3 // 2)
     missing = [k for k in SEQUENTIAL_KERNELS if counts.get(k, 0) == 0]
+    k5 = per_encode.get("bp_slope", 0)
     print(f"{title} x{gops}: encode "
           f"{vid.frames / enc_s:.3f} fps ({enc_s:.3f} s, warm-up "
           f"{warm_s:.3f} s), decode {vid.frames / dec_s:.3f} fps "
@@ -830,6 +918,9 @@ def _staged_run(dev, cfg, title, phase):
           f"reserved", flush=True)
     if missing:
         raise SystemExit(f"{phase}: kernels never launched: {missing}")
+    if k5 != BP_SLOPE_PER_GOP * gops:
+        raise SystemExit(f"{phase}: K5 launched {k5} times in the timed "
+                         f"{gops}-GOP encode, not {BP_SLOPE_PER_GOP} a GOP")
     if not py >= 25.0:
         raise SystemExit(f"{phase}: PSNR-Y {py:.3f} dB < 25 dB")
     return counts, (bpp, py)
@@ -1954,7 +2045,8 @@ def phase_tools(dev, flagship_quality):
 
 #: phase 12: the kernels each profiled window must hold, launches per GOP
 PROFILE_KERNELS = {"encode": {"me_refine": 14, "mc_predict": 4,
-                              "mc_update2": 4},
+                              "mc_update2": 4,
+                              "bp_slope": BP_SLOPE_PER_GOP},
                    "decode": {"mc_predict": 4, "mc_update2": 4}}
 #: phase 12's process: ``profile_stages`` and ``profile_decode --loops 5``
 _PROFILE_CHILD = (
@@ -1980,9 +2072,9 @@ def _check_profile(name, prof, gops):
         if not seen == counted == per_gop * gops:
             bad.append(f"{name}: {k} seen {seen} times by the profiler, "
                        f"counted {counted}, want {per_gop} x {gops} GOPs")
-    if prof["stages_sum_s"] > prof["host_wall_s"]:
-        bad.append(f"{name}: stages {prof['stages_sum_s']} s > the window's "
-                   f"{prof['host_wall_s']} s")
+    if prof["stages_outer_s"] > prof["host_wall_s"]:
+        bad.append(f"{name}: outermost stages {prof['stages_outer_s']} s > "
+                   f"the window's {prof['host_wall_s']} s")
     return bad
 
 
@@ -2022,7 +2114,8 @@ def phase_profile():
                        ("decode", decode["profile"])):
         print(f"  12 {name}: wall {prof['wall_s']:.6f} s (profiled), busy "
               f"{prof['busy_s']:.6f} s = {prof['busy_share']:.4f}, stages "
-              f"{prof['stages_sum_s']:.6f} s, window under no stage "
+              f"{prof['stages_sum_s']:.6f} s (outermost "
+              f"{prof['stages_outer_s']:.6f} s), window under no stage "
               f"{prof['unstaged_share']:.4f}; kernels {prof['kernels']}",
               flush=True)
         for op in prof["top_ops"][:5]:
@@ -2073,8 +2166,13 @@ def main() -> int:
                 "plain_ms": parity[name][2], "bound_ms": parity[name][3][0],
                 "bound_by": parity[name][3][1], "library_ms": None}
                for name, (src, replaces) in KERNEL_SOURCES.items()]
+    # K5 is held to the plain version's keep decisions, not exactly
+    k5 = next(k for k in kernels if k["name"] == "bp_slope")
+    k5["keep_differing"] = k5.pop("max_abs_err")
+    k5["smax_max_rel_err"] = parity["bp_slope"][4]
     bad = [k["name"] for k in kernels
-           if k["launches"] == 0 or k["max_abs_err"] != 0]
+           if k["launches"] == 0 or k.get("max_abs_err", 0) != 0
+           or k.get("keep_differing", 0) != 0]
     if bad:
         raise SystemExit(f"kernels not launched on their path or inexact: "
                          f"{bad}")

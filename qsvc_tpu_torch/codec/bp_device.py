@@ -11,9 +11,13 @@ accumulation is ordered.  The result, ``smax``, is the first slope of a
 block's R-D hull: a block survives truncation at threshold ``t`` iff
 ``smax * band_gain >= t``, so blocks that fail are never fetched or coded.
 
-Plain PyTorch (the JAX version is not a Pallas kernel).  Sums of squares
-are float32 as in the JAX version; their reduction order differs, so
-``smax`` agrees to float32 rounding, not bit for bit.
+CUDA tensors take kernel K5 (``csrc/bp_slope.cu`` through
+``ops/cuda_bp.py``): one CTA per block, the exact integer sums of each
+pass rounded to float32 once.  CPU tensors take
+:func:`bp_max_slope_plain`, plain PyTorch like the JAX version (plain
+jnp, no Pallas kernel), whose float32 sums of squares reduce in another
+order than XLA's.  So ``smax`` agrees between the three to float32
+rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import cuda_bp
 
 #: bit-planes simulated: |int16| magnitudes need up to 16 (-32768).
 PMAX = 16
@@ -52,7 +58,18 @@ def bp_max_slope(tiles: torch.Tensor, th: torch.Tensor, tw: torch.Tensor,
     ``tiles``: (K, cb, cb) integer coefficients (edge tiles zero-padded);
     ``th``/``tw``: (K,) true tile dims.  Returns ``(smax, d0)``: per block
     the maximum prefix slope (unweighted SSE per byte) and the total SSE
-    at zero rate, both float32."""
+    at zero rate, both float32.  Kernel K5 for CUDA tensors,
+    :func:`bp_max_slope_plain` for CPU tensors."""
+    if tiles.is_cuda:
+        return cuda_bp.bp_slope(tiles, th, tw, stripe)
+    return bp_max_slope_plain(tiles, th, tw, stripe)
+
+
+def bp_max_slope_plain(tiles: torch.Tensor, th: torch.Tensor,
+                       tw: torch.Tensor, stripe: int = 4
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bp_max_slope` in plain PyTorch, on any device: ~40
+    full-size tensor operations per bit-plane."""
     K, cb, _ = tiles.shape
     dev = tiles.device
     v = tiles.to(torch.int32)

@@ -8,8 +8,8 @@ fallback.  Nothing here runs at import, so CPU-only hosts import the
 kernel modules freely.
 
 ``launches`` counts kernel launches per kernel name; the wrappers in
-``cuda_me.py`` / ``cuda_mc.py`` add one where they launch, so a run can
-show that its main path went through the kernels.  While a CUDA graph is
+``cuda_me.py`` / ``cuda_mc.py`` / ``cuda_bp.py`` add one where they
+launch, so a run can show that its main path went through the kernels.  While a CUDA graph is
 captured (``utils/graphs.py``) nothing runs: :func:`counting_into` sends
 that thread's counts to the graph's record, which each replay adds.
 """
@@ -104,8 +104,10 @@ def load():
             lib.qsvc_mc_predict.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [vp]
             lib.qsvc_mc_update2.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
             lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]
+            lib.qsvc_bp_slope.argtypes = [vp] * 5 + [ci] * 2 + [vp]
             for fn in (lib.qsvc_me_refine, lib.qsvc_mc_predict,
-                       lib.qsvc_mc_update2, lib.qsvc_mc_update1):
+                       lib.qsvc_mc_update2, lib.qsvc_mc_update1,
+                       lib.qsvc_bp_slope):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -121,9 +123,8 @@ def build_seconds() -> float:
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape, contiguous: bool = True) -> None:
     """Raise unless ``t`` is a CUDA tensor of dtype/shape, contiguous
-    unless ``contiguous`` is False."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    unless ``contiguous`` is False (the device is checked last, so a CPU
+    tensor shows each other fault)."""
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -131,6 +132,8 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -51,7 +51,8 @@ from .bench import card_uuid, device_name, launches_since
 KERNELS = {"me_refine": "me_refine_kernel",
            "mc_predict": "mc_predict_kernel",
            "mc_update2": "mc_update_kernel<2>",
-           "mc_update1": "mc_update_kernel<1>"}
+           "mc_update1": "mc_update_kernel<1>",
+           "bp_slope": "bp_slope_kernel"}
 #: what ``nvidia-smi`` is asked beside a window
 SMI_QUERY = "name,power.limit,clocks.sm,power.draw,temperature.gpu"
 #: the ``record_function`` that marks a window on the profiler's clock
@@ -184,6 +185,18 @@ def stage_intervals(records: Sequence[dict], offset: float
             for r in records if "seconds" in r]
 
 
+def outermost_seconds(stages: Sequence[Tuple[str, float, float]]) -> float:
+    """Seconds of the stages that lie inside no other stage: a nested
+    span (``upload`` inside ``upload+mctf_dispatch``, a ``gc.collect``
+    inside any stage) is already part of its parent's time."""
+    total, end = 0.0, float("-inf")
+    for _, a, b in sorted(stages, key=lambda s: (s[1], -s[2])):
+        if b > end:
+            total += b - a
+            end = b
+    return total
+
+
 def window_summary(ops: Sequence[Tuple[str, float, float]],
                    records: Sequence[dict], start: float, end: float,
                    offset: float, top: int = 10, n_gaps: int = 5) -> dict:
@@ -211,6 +224,7 @@ def window_summary(ops: Sequence[Tuple[str, float, float]],
                                      end), stages, start, n_gaps),
         "stages_s": summary,
         "stages_sum_s": sum(summary.values()),
+        "stages_outer_s": outermost_seconds(stages),
         "staged_s": staged,
         "unstaged_share": 1.0 - staged / span if span > 0 else 0.0,
     }
@@ -421,7 +435,8 @@ def print_profile(title: str, prof: dict) -> None:
     for g in prof["gaps"]:
         print(f"  gap at +{g['start']:.6f} s: {g['seconds']:.6f} s under "
               f"{g['stage']}", flush=True)
-    print(f"  stages: sum {prof['stages_sum_s']:.6f} s, union "
+    print(f"  stages: sum {prof['stages_sum_s']:.6f} s, outermost "
+          f"{prof['stages_outer_s']:.6f} s, union "
           f"{prof['staged_s']:.6f} s, window not under any stage "
           f"{prof['unstaged_share']:.4f}; "
           + ", ".join(f"{k} {v:.6f}" for k, v in

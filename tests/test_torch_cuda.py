@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update,
-K4 one-direction update) against their plain PyTorch versions, and the
-captured programs (``utils/graphs.py``) against their eager runs.
+K4 one-direction update, K5 the bp R-D simulation) against their plain
+PyTorch versions (K5 also against the native coder's pass records), and
+the captured programs (``utils/graphs.py``) against their eager runs.
 
 Tests marked ``gpu`` need a CUDA device and skip without one;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship
@@ -13,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from qsvc_tpu_torch.codec import frame_codec
+from qsvc_tpu_torch import api
+from qsvc_tpu_torch.codec import bp_device, fast, frame_codec
 from qsvc_tpu_torch.config import CodecConfig
 from qsvc_tpu_torch.io import synthetic_video
 from qsvc_tpu_torch.mctf import me, motion_coding, predict, transform, update
-from qsvc_tpu_torch.ops import cuda_lib, cuda_mc, cuda_me
+from qsvc_tpu_torch.ops import cuda_bp, cuda_lib, cuda_mc, cuda_me
 from qsvc_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
@@ -577,3 +579,170 @@ def test_captured_program_rejects_mixed_devices(cuda):
     fn = graphs.captured(lambda a, b: a + b)
     with pytest.raises(ValueError, match="one device"):
         fn(torch.zeros(1), torch.zeros(1, device=cuda))
+
+
+# ---- K5: the bp R-D simulation
+
+def _native_slope(tile):
+    """(max prefix slope, d0) of the native bp coder's pass records for
+    one un-padded tile."""
+    cs = fast._bp_encode_tiles([tile.astype(np.int64)])[0]
+    best = 0.0
+    for end, d in zip(cs.pass_ends, cs.pass_dist):
+        if end > 0:
+            best = max(best, (cs.dist0 - d) / end)
+    return best, cs.dist0
+
+
+def _k5_case(name):
+    """(tiles (K, cb, cb) int16, th, tw) of one case: the JAX package's
+    bp_device test tiles, edge tiles whose padding holds noise (K5 must
+    mask it), and blocks of 32 and 16."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("edge"):
+        th, tw = map(int, name[4:].split("x"))
+        tile = rng.integers(-500, 500, (1, 64, 64)).astype(np.int16)
+        return tile, np.array([th], np.int32), np.array([tw], np.int32)
+    if name.startswith("cb"):
+        cb, K = int(name[2:]), 12
+        scale = rng.choice([1, 8, 60, 900, 20000], size=(K, 1, 1))
+        t = np.clip(np.round(rng.laplace(0, 1, (K, cb, cb)) * scale),
+                    -32768, 32767).astype(np.int16)
+        t[::5] = 0
+        dims = rng.integers(1, cb + 1, (2, K)).astype(np.int32)
+        dims[:, :K // 2] = cb
+        return t, dims[0], dims[1]
+    t = np.zeros((64, 64), np.int32)
+    if name == "single":
+        t[5, 7] = -3000
+    elif name == "noise3":
+        t = rng.integers(-3, 4, (64, 64))
+    elif name == "dense2000":
+        t = rng.integers(-2000, 2000, (64, 64))
+    elif name == "sparse":
+        t = (rng.normal(0, 30, (64, 64)) * (rng.random((64, 64)) < 0.05))
+    elif name == "min":
+        t[:] = -32768
+    full = np.array([64], np.int32)
+    return t.astype(np.int16)[None], full, full
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "zero", "single", "noise3", "dense2000", "sparse", "min",
+    "edge64x17", "edge5x64", "edge9x13", "edge1x1", "cb32", "cb16"])
+def test_k5_matches_native(cuda, name):
+    """smax and d0 of K5 against the native bp coder run on each
+    un-padded tile: smax to rel 1e-4, d0 to rel 1e-5."""
+    tiles, th, tw = _k5_case(name)
+    smax, d0 = cuda_bp.bp_slope(*(torch.from_numpy(a).to(cuda)
+                                  for a in (tiles, th, tw)))
+    smax, d0 = smax.cpu().numpy(), d0.cpu().numpy()
+    for i, tile in enumerate(tiles):
+        want_s, want_d = _native_slope(tile[:th[i], :tw[i]])
+        assert smax[i] == pytest.approx(want_s, rel=1e-4, abs=1e-6), i
+        assert d0[i] == pytest.approx(want_d, rel=1e-5), i
+
+
+@pytest.fixture(scope="module")
+def flagship_stacks():
+    """The arguments of both ``_encode_device_jit`` calls (luma and chroma
+    stack) of one flagship-size GOP of ``synthetic_video``, recorded
+    during ``api.compress`` with fresh graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = CodecConfig(pixels_in_x=1920, pixels_in_y=1088, TRLs=5, GOPs=1,
+                      SRLs=5, search_range=4, update_factor=0.25,
+                      quantization_texture=45000)
+    vid = synthetic_video(cfg.pictures, 1088, 1920, seed=0)
+    calls = []
+    original = frame_codec._encode_device_jit
+
+    def record(*args):
+        calls.append(args)
+        return original(*args)
+    graphs.clear()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(frame_codec, "_encode_device_jit", record)
+        api.compress(vid, cfg, device="cuda")
+    assert len(calls) == 2
+    return calls
+
+
+@pytest.mark.gpu
+def test_k5_keeps_the_plain_blocks_on_a_flagship_gop(flagship_stacks):
+    """K5 against the plain version on both stacks of a flagship GOP: the
+    same keep mask at the config's slope floor, smax to rel 1e-5."""
+    kept = []
+    for planes, delta, th, tw, ms, levels, rev, cb in flagship_stacks:
+        tiles, maxabs, _ = frame_codec._dwt_quant_tiles(planes, levels, rev,
+                                                        delta, cb)
+        flat = tiles.reshape(-1, cb, cb)
+        got, _ = bp_device.bp_max_slope(flat, th, tw)
+        want, _ = bp_device.bp_max_slope_plain(flat, th, tw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        keep = [(maxabs > 0) & (s.reshape(maxabs.shape) >= ms)
+                for s in (got, want)]
+        assert torch.equal(keep[0], keep[1])
+        kept.append(keep[0].reshape(-1))
+    kept = torch.cat(kept)            # the floor keeps some blocks, not all
+    assert kept.any() and not kept.all()
+
+
+@pytest.mark.gpu
+def test_k5_in_the_captured_texture_program(flagship_stacks):
+    """``_encode_device_jit`` replays equal its eager runs bit for bit at
+    the flagship stacks, and each graph's record holds one K5 launch."""
+    for args in flagship_stacks:
+        _assert_same(frame_codec._encode_device_jit(*args),
+                     frame_codec._encode_device(*args))
+    recs = [g["launches"] for g in graphs.stats()
+            if g["name"] == "_encode_device"]
+    assert recs == [{"bp_slope": 1}] * 2
+
+
+def test_bp_max_slope_takes_the_plain_version_on_the_cpu():
+    """CPU tensors never reach K5: the plain version's values, exactly."""
+    rng = np.random.default_rng(5)
+    t = np.clip(np.round(rng.laplace(0, 40, (9, 16, 16))), -32768, 32767)
+    args = (torch.from_numpy(t.astype(np.int16)),
+            torch.from_numpy(rng.integers(1, 17, 9).astype(np.int32)),
+            torch.full((9,), 16, dtype=torch.int32))
+    cuda_lib.reset_launches()
+    for got, want in zip(bp_device.bp_max_slope(*args),
+                         bp_device.bp_max_slope_plain(*args)):
+        assert torch.equal(got, want)
+    assert not cuda_lib.launches
+
+
+def _k5_args(fault):
+    K, cb = 3, 16
+    tiles = torch.zeros((K, cb, cb), dtype=torch.int16)
+    dims = torch.full((K,), cb, dtype=torch.int32)
+    th, tw, stripe = dims, dims, 4
+    if fault == "int32 tiles":
+        tiles = tiles.to(torch.int32)
+    elif fault == "non-contiguous":
+        tiles = torch.zeros((K, cb, 2 * cb), dtype=torch.int16)[:, :, ::2]
+    elif fault == "cb 128":
+        tiles = torch.zeros((K, 128, 128), dtype=torch.int16)
+    elif fault == "cb 12":
+        tiles = torch.zeros((K, 12, 12), dtype=torch.int16)
+    elif fault == "th/tw lengths":
+        tw = dims[:K - 1]
+    elif fault == "stripe 8":
+        stripe = 8
+    return tiles, th, tw, stripe
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("cpu", "CUDA"), ("int32 tiles", "int16"),
+    ("non-contiguous", "contiguous"), ("cb 128", "code-block size"),
+    ("cb 12", "code-block size"), ("th/tw lengths", "shape"),
+    ("stripe 8", "stripe")])
+def test_k5_rejects(fault, match):
+    """The wrapper's argument checks raise before anything runs, each on
+    its own fault (the device is checked last)."""
+    tiles, th, tw, stripe = _k5_args(fault)
+    with pytest.raises(ValueError, match=match):
+        cuda_bp.bp_slope(tiles, th, tw, stripe)

@@ -220,7 +220,8 @@ def test_window_summary_on_a_fabricated_timeline():
     assert [o["seconds"] for o in w["top_ops"]] == pytest.approx(
         [1.5, 1.0, 0.8])
     assert w["kernels"] == {"me_refine": 2, "mc_predict": 1,
-                            "mc_update2": 1, "mc_update1": 0}
+                            "mc_update2": 1, "mc_update1": 0,
+                            "bp_slope": 0}
     gaps = [(g["start"], g["seconds"], g["stage"]) for g in w["gaps"]]
     assert [g[2] for g in gaps] == [profile.NO_STAGE, "fetch"]
     assert [g[:2] for g in gaps] == [pytest.approx((6.6, 3.4)),
@@ -230,6 +231,22 @@ def test_window_summary_on_a_fabricated_timeline():
     assert w["stages_s"] == {"analyze": 2.0, "fetch": 2.0}
     assert w["staged_s"] == pytest.approx(4.0)
     assert w["unstaged_share"] == pytest.approx(0.6)
+
+
+def test_outermost_stages_count_nested_spans_once():
+    """A stage inside another (``upload`` in ``upload+mctf_dispatch``, a
+    collection inside anything) is part of its parent's time; stages that
+    only touch or overlap are each counted."""
+    stages = [("upload+mctf_dispatch", 0.0, 4.0), ("upload", 1.0, 2.0),
+              ("gc.collect", 1.5, 1.6), ("texture_dispatch", 4.0, 6.0),
+              ("texture_args_upload", 4.0, 5.0), ("other", 5.5, 7.0)]
+    assert profile.outermost_seconds(stages) == pytest.approx(7.5)
+    assert profile.outermost_seconds([]) == 0.0
+    w = profile.window_summary([], [
+        {"stage": n, "ts": b - 100.0, "seconds": b - a}
+        for n, a, b in stages], 0.0, 10.0, 100.0)
+    assert w["stages_sum_s"] == pytest.approx(9.6)
+    assert w["stages_outer_s"] == pytest.approx(7.5)
 
 
 def test_short_names_and_resolution():
