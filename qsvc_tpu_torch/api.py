@@ -472,24 +472,33 @@ def compress_chunks(chunks, gop_cfg: CodecConfig,
     GOP ``g``'s stats fetch runs before GOP ``g+window``'s dispatch, and
     the host entropy coding of GOP ``g`` overlaps the device work queued
     for the GOPs after it.  ``progress(index, stream)`` is called as each
-    GOP's stream is finished, in order.  A texture backend codes on the
-    host, GOP after GOP, with no pipeline."""
-    if gop_cfg.texture_backend != "internal":
-        out = []
-        for i, chunk in enumerate(chunks):
-            vs = _compress_with_backend(chunk, gop_cfg, device=device)
-            if progress is not None:
-                progress(i, vs)
+    GOP's stream is finished, in order; the streams it is handed are not
+    kept, and the call then returns an empty list, so that a feed of any
+    length (``chunks`` may be a generator) holds only the GOPs in flight
+    and the collector's full passes do not walk every stream so far.
+    This differs from ``qsvc_tpu.api.compress_chunks``, which returns
+    every stream with or without ``progress``; without ``progress`` both
+    return the streams.  A texture backend codes on the host, GOP after
+    GOP, with no pipeline."""
+    out: List[VideoStream] = []
+    index = 0
+
+    def done(vs: VideoStream) -> None:
+        nonlocal index
+        if progress is None:
             out.append(vs)
+        else:
+            progress(index, vs)
+        index += 1
+
+    if gop_cfg.texture_backend != "internal":
+        for chunk in chunks:
+            done(_compress_with_backend(chunk, gop_cfg, device=device))
         return out
     pendings: List[dict] = []
-    out: List[VideoStream] = []
 
     def finish_one():
-        vs = compress_finish(pendings.pop(0))
-        if progress is not None:
-            progress(len(out), vs)
-        out.append(vs)
+        done(compress_finish(pendings.pop(0)))
 
     for chunk in chunks:
         if len(pendings) >= max(window, 1):

@@ -14,7 +14,8 @@ FAST_SEARCH path):
   step (5/3 zero-high synthesis): the vectors double, clamp to
   ``±(search_range << a)`` and refine once more at ``block_size << s``
   (``motion_estimate.cpp:361-407``), so they come out in units of
-  ``2^-a`` pixel.
+  ``2^-a`` pixel; each step's interpolation of the evens and odds is an
+  ``mctf.interp`` program span (``part`` ``me_up``, its ``step``).
 
 The refinement runs in kernel K1 (``csrc/me_refine.cu``) for CUDA
 tensors and in :func:`_refine_level`, its plain PyTorch version, for CPU
@@ -198,8 +199,12 @@ def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,
     up_e, up_o = evens, odds
     cap = search_range << subpixel_accuracy
     for s in range(1, subpixel_accuracy + 1):
-        up_e = dwt2d.upsample2(up_e).contiguous()
-        up_o = dwt2d.upsample2(up_o).contiguous()
+        # the refinements read every step's output; the first step reads
+        # the frames (:func:`dwt2d.interp_span`)
+        with dwt2d.interp_span("me_up", [up_e, up_o], 1, reads=s == 1,
+                               step=s):
+            up_e = dwt2d.upsample2(up_e).contiguous()
+            up_o = dwt2d.upsample2(up_o).contiguous()
         mv = (mv * 2).clamp(-cap, cap)
         mv = _refine_level_batch(up_o, up_e[:-1], up_e[1:], mv,
                                  block_size << s, border_size >> s, H << s,

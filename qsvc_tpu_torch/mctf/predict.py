@@ -12,7 +12,9 @@ Port of ``qsvc_tpu/mctf/predict.py`` (``trunk/src/decorrelate.cpp``):
   it with a per-window 5/3 DWT and stitches the subbands: plain torch
   ops on every device, as in the JAX package (no kernel);
 * sub-pixel prediction runs the block prediction on references
-  interpolated x2 per accuracy step and brings it back down;
+  interpolated x2 per accuracy step and brings it back down; each
+  interpolation and decimation is an ``mctf.interp`` program span
+  (``ops.dwt2d.interp_span``);
 * the residue is ``clip(odd - prediction, -128, 127)`` stored +128 biased;
 * the I/B decision compares first-order entropies:
   ``H(odd)*pixels <= H(residue)*pixels + H(motion)*blocks`` selects an
@@ -265,15 +267,17 @@ def predict_frames_subpixel_evens(evens444: torch.Tensor, mv: torch.Tensor,
 
 def _interpolate(frames: torch.Tensor, a: int) -> torch.Tensor:
     """``a`` steps of x2 interpolation (zero-high 5/3 synthesis)."""
-    for _ in range(a):
-        frames = dwt2d.upsample2(frames)
+    with dwt2d.interp_span("pred_up", [frames], a):
+        for _ in range(a):
+            frames = dwt2d.upsample2(frames)
     return frames
 
 
 def _decimate(pred: torch.Tensor, a: int) -> torch.Tensor:
     """``a`` analysis levels keeping LL: back to base resolution."""
-    for _ in range(a):
-        pred = dwt2d.downsample2(pred)
+    with dwt2d.interp_span("pred_down", [pred], a, up=False):
+        for _ in range(a):
+            pred = dwt2d.downsample2(pred)
     return pred
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
-from ..utils import graphs
+from ..utils import graphs, trace
 from . import me, predict, update
 
 Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -154,8 +154,9 @@ def _analyze(y, u, v, cfg: CodecConfig, update_evens) -> MCTFStream:
     low = (y.to(torch.int16), u.to(torch.int16), v.to(torch.int16))
     levels: List[LevelData] = []
     for lp in cfg.level_schedule():
-        low, lev = _analyze_level(low, lp.block_size, lp.search_range, cfg,
-                                  update_evens)
+        with trace.fields(level=lp.temporal_subband):
+            low, lev = _analyze_level(low, lp.block_size, lp.search_range,
+                                      cfg, update_evens)
         levels.append(lev)
     return MCTFStream(low[0], low[1], low[2], tuple(levels))
 
@@ -177,8 +178,9 @@ def _synthesize(stream: MCTFStream, cfg: CodecConfig, discard_TRLs: int,
                         lev.high_u.to(torch.int16),
                         lev.high_v.to(torch.int16),
                         lev.mv.to(torch.int32), lev.is_B)
-        low = _synthesize_level(low, lev, lp.block_size, lp.search_range,
-                                cfg, update_evens)
+        with trace.fields(level=lp.temporal_subband):
+            low = _synthesize_level(low, lev, lp.block_size,
+                                    lp.search_range, cfg, update_evens)
     return low
 
 

@@ -105,9 +105,10 @@ def load():
             lib.qsvc_mc_update2.argtypes = [vp, vp, vp] + [ci] * 9 + [vp]
             lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]
             lib.qsvc_bp_slope.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+            lib.qsvc_stamp.argtypes = [vp, ci, vp]
             for fn in (lib.qsvc_me_refine, lib.qsvc_mc_predict,
                        lib.qsvc_mc_update2, lib.qsvc_mc_update1,
-                       lib.qsvc_bp_slope):
+                       lib.qsvc_bp_slope, lib.qsvc_stamp):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -142,6 +143,17 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def stamp(buf: torch.Tensor, index: int) -> None:
+    """Write the card's clock (``%globaltimer``, ns) into ``buf[index]``
+    (int64 on the card) once the work queued before on the current stream
+    has run (``csrc/stamp.cu``).  The tracing's, not the codec's: not
+    counted in :data:`launches`."""
+    err = load().qsvc_stamp(ptr(buf), index, stream_ptr(buf))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel stamp failed to launch: "
+                           f"cudaError {err}")
 
 
 def launched(name: str, err: int) -> None:

@@ -11,10 +11,12 @@ in place, the others with the axis moved last.
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import List, Sequence
 
 import torch
 
+from ..utils import trace
 from . import lifting
 
 
@@ -148,6 +150,32 @@ def downsample2(x: torch.Tensor, filt: str = "5/3") -> torch.Tensor:
         return _low_axis(_low_axis(x, -1), -2)
     packed = analyze(x, 1, filt)
     return packed[..., :H - H // 2, :W - W // 2]
+
+
+def interp_span(part: str, frames: Sequence[torch.Tensor], steps: int,
+                up: bool = True, reads: bool = True, **meta):
+    """The ``mctf.interp`` program span (``utils.trace.program_span``) of
+    ``steps`` x2 interpolations (``up``, :func:`upsample2`) or decimations
+    (:func:`downsample2`) of each of ``frames``; no span at ``steps`` 0.
+    ``samples``: the samples every step writes.  ``bytes``: the least
+    traffic the region needs, whatever kernel does it, at the frames'
+    element size: its input read once (not where ``reads`` is False,
+    since an earlier region wrote that input from what it read, and one
+    kernel may write both outputs from it) and its last output written
+    once (the steps between need not leave the chip)."""
+    if steps == 0:
+        return contextlib.nullcontext()
+    samples = nbytes = 0
+    for x in frames:
+        n = x.numel()
+        if reads:
+            nbytes += n * x.element_size()
+        for _ in range(steps):
+            n = 4 * n if up else n // 4
+            samples += n
+        nbytes += n * x.element_size()
+    return trace.program_span("mctf.interp", frames[0].device, part=part,
+                              samples=samples, bytes=nbytes, **meta)
 
 
 def ll_view(x: torch.Tensor, levels: int) -> torch.Tensor:

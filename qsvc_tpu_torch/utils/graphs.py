@@ -34,7 +34,12 @@ event recorded after each call's copy-out.
 
 Tracing: under a ``utils.trace`` run log every call is the device span
 ``graph.<fn name>`` (copy-in, replay and copy-out on the card; the eager
-run on the CPU), and a capture the host span ``graphs.capture``.
+run on the CPU), and a capture the host span ``graphs.capture``.  The
+program spans that ``fn`` opens (``trace.program_span``) are captured as
+stamps into the graph, log or no log; a replay under a log that keeps
+them copies the graph's stamps out after its outputs, and the log places
+them inside the replay's device span.  A program that opens none (the
+whole-pixel MCTF, every texture program) is captured as it was.
 
 Launches: ``ops.cuda_lib.launches`` counts kernel launches.  A capture
 launches nothing, so the wrappers' counts during a capture go to the
@@ -119,6 +124,7 @@ class _Graph(NamedTuple):
     outputs: List[Any]                 # static outputs (and other leaves)
     launches: collections.Counter      # kernel launches of one replay
     stats: Dict[str, Any]
+    stamps: Any                        # trace.GraphStamps, or None
 
 
 class _Device:
@@ -160,8 +166,9 @@ def _capture(fn, leaves: List[Any], spec, dev: _Device) -> _Graph:
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        call()                                  # the warm-up
+    with torch.cuda.stream(side), trace.capturing(
+            trace.GraphStamps(cuda_lib.stamp)):
+        call()          # the warm-up; its program spans' stamps are dropped
     torch.cuda.current_stream().wait_stream(side)
     t1 = time.perf_counter()
     if not dev.graphs:
@@ -171,9 +178,10 @@ def _capture(fn, leaves: List[Any], spec, dev: _Device) -> _Graph:
         dev.stream = torch.cuda.Stream()
     graph = torch.cuda.CUDAGraph()
     launches: collections.Counter = collections.Counter()
-    with cuda_lib.counting_into(launches), torch.cuda.graph(
-            graph, pool=dev.pool, stream=dev.stream,
-            capture_error_mode="thread_local"):
+    stamps = trace.GraphStamps(cuda_lib.stamp)
+    with cuda_lib.counting_into(launches), trace.capturing(stamps), \
+            torch.cuda.graph(graph, pool=dev.pool, stream=dev.stream,
+                             capture_error_mode="thread_local"):
         out = call()
     out_leaves: List[Any] = []
     out_spec = _flatten(out, out_leaves)
@@ -181,7 +189,8 @@ def _capture(fn, leaves: List[Any], spec, dev: _Device) -> _Graph:
                  shapes=[tuple(x.shape) for x in inputs],
                  warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
                  replays=0)
-    return _Graph(graph, inputs, out_spec, out_leaves, launches, stats)
+    return _Graph(graph, inputs, out_spec, out_leaves, launches, stats,
+                  stamps if stamps.sites else None)
 
 
 def _run(fn: Callable, leaves: List[Any], spec):
@@ -224,11 +233,16 @@ def _run(fn: Callable, leaves: List[Any], spec):
         tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
         outs = [x for x in entry.outputs if isinstance(x, torch.Tensor)]
         copies = [torch.empty_like(x) for x in outs]
-        with trace.device_stage(name, device):
+        stamps = trace.replay_stamps(entry.stamps, name, device)
+        with trace.device_stage(name, device, stamps=stamps):
+            if stamps is not None:
+                stamps.begin()
             if not fresh:       # a capture copied its inputs already
                 torch._foreach_copy_(entry.inputs, tensors)
             entry.graph.replay()
             torch._foreach_copy_(copies, outs)
+            if stamps is not None:
+                stamps.end()
         it = iter(copies)
         out = [next(it) if isinstance(x, torch.Tensor) else x
                for x in entry.outputs]

@@ -25,6 +25,22 @@ mirrors every record to a JSON-lines file, the ``./trace`` analogue):
   device when the log is installed, else at the device's first span),
   so that device spans, host spans and a profiler's device
   operations put on the same clock share one timeline;
+* **program spans**, ``program_span("name", device, **meta)``: a device
+  span around a region of a captured program (``utils/graphs.py``), the
+  same record as a device span's.  While the program is captured, a
+  one-thread kernel (the ``stamp`` the capture hands :class:`GraphStamps`,
+  ``ops/cuda_lib.stamp`` in ``utils/graphs.py``) writes the card's clock
+  into the graph's own stamp tensor at each edge of the region, whether
+  or not a log is installed, so the stamps are nodes of the graph and run
+  at every replay.  A replay under a log that keeps the region's name and the
+  graph's device span stamps its own start, copies the graph's stamps
+  after its outputs into a tensor of its own and on to pinned host memory
+  without waiting; the log resolves them with the enclosing
+  ``graph.<fn name>`` span and places each region inside it, at the span's
+  start plus the card's time from the replay's start stamp.  Outside a
+  capture (eager on the card, or on the CPU) a program span is a device
+  span.  ``fields(**meta)`` adds fields to the program spans opened
+  inside it (the MCTF's temporal ``level``);
 * **collector pauses**: each run of Python's garbage collector while a
   log is installed, as the host span ``gc.collect`` with its
   ``generation`` and ``collected`` (a ``gc.callbacks`` hook, installed
@@ -40,11 +56,13 @@ exchanges).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import gc
 import json
 import threading
 import time
-from typing import Any, Dict, Iterable, List, Optional
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 
 class RunLog:
@@ -58,7 +76,7 @@ class RunLog:
         self.only = None if only is None else frozenset(only)
         self._records: List[Dict[str, Any]] = []
         #: device spans whose events are not read yet: (record, device,
-        #: begin event, end event)
+        #: begin event, end event, :class:`ReplayStamps` or None)
         self._pending: List[tuple] = []
         #: device -> (anchor event, host time of the anchor)
         self._anchors: Dict[Any, tuple] = {}
@@ -137,20 +155,22 @@ class RunLog:
         if torch.cuda.memory_reserved(index):
             self._anchor(torch.device("cuda", index))
 
-    def _add_device(self, record: Dict[str, Any], device, begin, end
-                    ) -> None:
+    def _add_device(self, record: Dict[str, Any], device, begin, end,
+                    stamps: Optional["ReplayStamps"] = None) -> None:
         with self._lock:
-            self._pending.append((record, device, begin, end))
+            self._pending.append((record, device, begin, end, stamps))
         self._resolve(wait=False)
 
     def _resolve(self, wait: bool) -> None:
-        """Place the pending device spans on the host clock, oldest first;
-        without ``wait`` only those whose work has finished (no
+        """Place the pending device spans on the host clock, oldest first,
+        each followed by the program spans of its replay; without ``wait``
+        only those whose work and stamps have finished (no
         synchronisation)."""
         with self._lock:
             while self._pending:
-                record, device, begin, end = self._pending[0]
-                if not wait and not end.query():
+                record, device, begin, end, stamps = self._pending[0]
+                if not wait and not (end.query() and (
+                        stamps is None or stamps.done.query())):
                     return
                 end.synchronize()
                 anchor, t = self._anchors[device]
@@ -159,6 +179,12 @@ class RunLog:
                 self._pending.pop(0)
                 self._append(dict(record, device_seconds=seconds,
                                   start=start, ts=start + seconds))
+                if stamps is not None:
+                    stamps.done.synchronize()
+                    for child in place_stamps(stamps.host.tolist(),
+                                              stamps.sites, start):
+                        if self.keeps(child["device_stage"]):
+                            self._append(child)
 
 
 _active: Optional[RunLog] = None
@@ -218,10 +244,13 @@ def stage(name: str, **meta):
 
 
 @contextlib.contextmanager
-def device_stage(name: str, device=None, **meta):
+def device_stage(name: str, device=None, *,
+                 stamps: Optional["ReplayStamps"] = None, **meta):
     """Time on ``device`` (default: the current CUDA device if there is
     one, else the CPU) the work a block queues, into the active run log
-    (no-op without one, or one that does not keep ``name``)."""
+    (no-op without one, or one that does not keep ``name``).  ``stamps``:
+    the block is a graph's replay, and these are its program spans'
+    stamps (:func:`replay_stamps`)."""
     log = _active
     if log is None or not log.keeps(name):
         yield
@@ -253,4 +282,151 @@ def device_stage(name: str, device=None, **meta):
         yield
     finally:
         end.record(stream)
-        log._add_device({"device_stage": name, **meta}, device, begin, end)
+        if stamps is not None:
+            stamps.fetch()
+        log._add_device({"device_stage": name, **meta}, device, begin, end,
+                        stamps)
+
+
+# -- program spans: regions of a captured program ---------------------------
+
+#: the fields :func:`fields` adds to the program spans opened inside it
+_fields: contextvars.ContextVar = contextvars.ContextVar(
+    "qsvc_trace_fields", default={})
+#: the :class:`GraphStamps` of the graph this thread is capturing, if any
+_capturing: contextvars.ContextVar = contextvars.ContextVar(
+    "qsvc_trace_capturing", default=None)
+
+
+@contextlib.contextmanager
+def fields(**meta):
+    """Add ``meta`` to every program span opened inside the block."""
+    token = _fields.set({**_fields.get(), **meta})
+    try:
+        yield
+    finally:
+        _fields.reset(token)
+
+
+class GraphStamps:
+    """The program spans of one captured graph: each region's name and
+    fields in the order the capture opened them, and the graph's stamp
+    tensor (int64 on the card, made inside the capture from the graph's
+    pool), which holds the card's clock at each region's begin and end,
+    slots 2k and 2k + 1, after every replay.  ``write(buf, index)``
+    queues the write of the card's clock into ``buf[index]`` on the
+    current stream."""
+
+    #: regions one graph may hold
+    MAX_SITES = 256
+
+    def __init__(self, write: Callable[[Any, int], None]):
+        self.write = write
+        self.sites: List[Tuple[str, Dict[str, Any]]] = []
+        self.buffer = None
+
+    def stamp(self, device, slot: int) -> None:
+        import torch
+        if self.buffer is None:
+            self.buffer = torch.empty(2 * self.MAX_SITES, dtype=torch.int64,
+                                      device=device)
+        self.write(self.buffer, slot)
+
+    def open(self, name: str, meta: Dict[str, Any], device) -> int:
+        k = len(self.sites)
+        if k == self.MAX_SITES:
+            raise RuntimeError(f"a captured program holds at most "
+                               f"{self.MAX_SITES} program spans")
+        self.sites.append((name, meta))
+        self.stamp(device, 2 * k)
+        return k
+
+
+@contextlib.contextmanager
+def capturing(stamps: GraphStamps):
+    """Send this thread's program spans to ``stamps`` while a graph is
+    warmed up or captured (``utils/graphs.py``)."""
+    token = _capturing.set(stamps)
+    try:
+        yield stamps
+    finally:
+        _capturing.reset(token)
+
+
+@contextlib.contextmanager
+def program_span(name: str, device=None, **meta):
+    """A device span around a region of a program that may be captured:
+    while this thread captures a graph, the region's stamps go into it
+    (whatever log is installed); otherwise :func:`device_stage`."""
+    meta = {**_fields.get(), **meta}
+    stamps = _capturing.get()
+    if stamps is None:
+        with device_stage(name, device, **meta):
+            yield
+        return
+    k = stamps.open(name, meta, device)
+    yield
+    stamps.stamp(device, 2 * k + 1)
+
+
+class ReplayStamps:
+    """One replay's program spans on their way to the host: the card's
+    clock at the replay's start (slot 0) and the graph's stamps after
+    its outputs (slots 1 ...), in a tensor of the replay's own, then
+    copied to pinned host memory behind the ``done`` event."""
+
+    def __init__(self, graph: GraphStamps, device):
+        import torch
+        self.sites = graph.sites
+        self.graph = graph
+        n = 1 + 2 * len(self.sites)
+        self.card = torch.empty(n, dtype=torch.int64, device=device)
+        self.host = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def begin(self) -> None:
+        """Stamp the replay's start (before its copy-in)."""
+        self.graph.write(self.card, 0)
+
+    def end(self) -> None:
+        """Take the graph's stamps (after the replay)."""
+        self.card[1:].copy_(self.graph.buffer[:self.card.numel() - 1])
+
+    def fetch(self) -> None:
+        """Copy them to the host without waiting."""
+        import torch
+        self.host.copy_(self.card, non_blocking=True)
+        self.done.record(torch.cuda.current_stream(self.card.device))
+
+
+def replay_stamps(graph: Optional[GraphStamps], name: str, device
+                  ) -> Optional[ReplayStamps]:
+    """A replay's :class:`ReplayStamps` where the active log keeps the
+    replay's device span ``name`` and some region of ``graph``; else
+    None (nothing is made or copied)."""
+    log = _active
+    if (graph is None or not graph.sites or log is None
+            or not log.keeps(name)
+            or not any(log.keeps(n) for n, _ in graph.sites)):
+        return None
+    return ReplayStamps(graph, device)
+
+
+def place_stamps(values: Sequence[int],
+                 sites: Sequence[Tuple[str, Dict[str, Any]]],
+                 start: float) -> List[Dict[str, Any]]:
+    """The device span records of one replay's regions: ``values`` the
+    card's clock in ns at the replay's start, then at each region's begin
+    and end in the order of ``sites`` ((name, fields)); ``start`` the
+    host time at which the replay's device span starts.  Each region
+    starts at ``start`` plus the card's time from the replay's start to
+    its begin stamp (so it lies inside the span, which opened before the
+    replay's start stamp and closes after the last region)."""
+    out = []
+    for k, (name, meta) in enumerate(sites):
+        b, e = values[1 + 2 * k], values[2 + 2 * k]
+        t = start + (b - values[0]) / 1e9
+        out.append({"device_stage": name, **meta,
+                    "device_seconds": (e - b) / 1e9, "start": t,
+                    "ts": t + (e - b) / 1e9})
+    return out

@@ -179,3 +179,23 @@ def test_device_is_required():
                                       TRLs=1))
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         MCTFStream.from_numpy(MCTFStream(vid.y, vid.u, vid.v, ()))
+
+
+def test_compress_chunks_hands_streams_to_progress_and_keeps_none():
+    """With ``progress`` every stream goes to it, in order, and none is
+    kept (the call returns an empty list), so a long feed holds only the
+    GOPs in flight; the streams are those of a call without it."""
+    from qsvc_tpu_torch.io import synthetic_video
+    cfg = CodecConfig(pixels_in_x=64, pixels_in_y=64, TRLs=2, GOPs=3,
+                      SRLs=2, block_size=16, search_range=4)
+    video = synthetic_video(cfg.pictures, 64, 64, seed=2)
+    S, gop_cfg = cfg.gop_size, cfg.replace(GOPs=1)
+    chunks = [video[g * S:(g + 1) * S + 1] for g in range(cfg.GOPs)]
+    kept = api.compress_chunks(chunks, gop_cfg, reversible=False,
+                               device="cpu")
+    got = []
+    out = api.compress_chunks(
+        iter(chunks), gop_cfg, reversible=False, window=2, device="cpu",
+        progress=lambda i, vs: got.append((i, vs.to_bytes())))
+    assert out == []
+    assert got == [(i, vs.to_bytes()) for i, vs in enumerate(kept)]

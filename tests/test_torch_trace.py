@@ -318,3 +318,224 @@ def test_encode_spans_once_per_gop():
         if r["stage"] == "upload":
             assert any(a <= r["ts"] - r["seconds"] and r["ts"] <= b
                        for a, b in outer)
+
+
+# -- program spans: the MCTF's sub-pixel interpolation ----------------------
+
+#: a quarter-pel GOP of 4 (levels 1 and 2) at 64x128
+SUBPEL = dict(pixels_in_x=128, pixels_in_y=64, TRLs=3, GOPs=1, SRLs=3,
+              block_size=16, search_range=4, subpixel_accuracy=2)
+
+
+def _frames(cfg):
+    video = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                            seed=5, kind="translate", velocity=(1.25, 2.5))
+    return [torch.from_numpy(p) for p in (video.y, video.u, video.v)]
+
+
+def _interp_samples(cfg):
+    """(level, part, step) -> the samples its region writes, from the
+    shapes: per level the evens and odds to 2x and 4x (the motion
+    search's steps), the 4:4:4 evens to 2x then 4x, the 4:4:4
+    predictions from 4x to 2x then 1x."""
+    H, W = cfg.pixels_in_y, cfg.pixels_in_x
+    out = {}
+    for lp in cfg.level_schedule():
+        t, P = lp.temporal_subband, lp.pictures // 2
+        out[(t, "me_up", 1)] = (2 * P + 1) * (2 * H) * (2 * W)
+        out[(t, "me_up", 2)] = (2 * P + 1) * (4 * H) * (4 * W)
+        out[(t, "pred_up", None)] = 3 * (P + 1) * (
+            (2 * H) * (2 * W) + (4 * H) * (4 * W))
+        out[(t, "pred_down", None)] = 3 * P * (
+            (2 * H) * (2 * W) + H * W)
+    return out
+
+
+@pytest.mark.parametrize("a", [0, 2])
+def test_interp_spans_of_a_subpel_analyze(log, a):
+    """On the CPU a quarter-pel ``analyze`` under a log gives one
+    ``mctf.interp`` device span per region of every level, inside the
+    program's own span, each with its ``samples`` and ``bytes`` (int16:
+    2 bytes a sample read or written); whole-pixel gives none."""
+    from qsvc_tpu_torch.mctf import transform
+    cfg = CodecConfig(**dict(SUBPEL, subpixel_accuracy=a))
+    transform.analyze_jit(*_frames(cfg), cfg)
+    spans = [r for r in _named(log, "device_stage")
+             if r["device_stage"] == "mctf.interp"]
+    if a == 0:
+        assert spans == []
+        return
+    want = _interp_samples(cfg)
+    got = {(r["level"], r["part"], r.get("step")): r["samples"]
+           for r in spans}
+    assert got == want and len(spans) == len(want)
+    (outer,) = [r for r in _named(log, "device_stage")
+                if r["device_stage"] == "graph.analyze"]
+    for r in spans:
+        assert r["device_seconds"] >= 0 and "seconds" not in r
+        assert outer["start"] <= r["start"] and r["ts"] <= outer["ts"]
+    # the least traffic, int16: each region reads its first input once
+    # (me_up's later step reads none: step 1 wrote it) and writes what
+    # leaves it (pred_up and pred_down their last step's output only)
+    H, W = cfg.pixels_in_y, cfg.pixels_in_x
+    for r in spans:
+        P = {1: 2, 2: 1}[r["level"]]
+        want_bytes = {
+            ("me_up", 1): (2 * P + 1) * (1 + 4) * H * W,
+            ("me_up", 2): (2 * P + 1) * 16 * H * W,
+            ("pred_up", None): 3 * (P + 1) * (1 + 16) * H * W,
+            ("pred_down", None): 3 * P * (16 + 1) * H * W,
+        }[(r["part"], r.get("step"))]
+        assert r["bytes"] == 2 * want_bytes, r
+
+
+def test_interp_spans_without_a_log_record_nothing(monkeypatch):
+    from qsvc_tpu_torch.mctf import transform
+
+    def no_event(*args, **kwargs):
+        raise AssertionError("a CUDA event was made with no run log")
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    trace.set_run_log(None)
+    idle = trace.RunLog()
+    cfg = CodecConfig(**SUBPEL)
+    transform.analyze_jit(*_frames(cfg), cfg)
+    assert idle.records == []
+
+
+@pytest.mark.parametrize("a", [0, 2])
+def test_capture_takes_each_region_as_two_stamps(a):
+    """While a program is captured its regions become stamps (whatever
+    log is installed): begin and end of region k at slots 2k and 2k + 1
+    of the graph's stamp tensor, in the order the card runs them, each
+    region's fields kept for the replays; whole-pixel takes none."""
+    from qsvc_tpu_torch.mctf import transform
+    slots = []
+    trace.set_run_log(None)
+    cfg = CodecConfig(**dict(SUBPEL, subpixel_accuracy=a))
+    stamps = trace.GraphStamps(lambda buf, index: slots.append(index))
+    with trace.capturing(stamps):
+        transform.analyze(*_frames(cfg), cfg)
+    if a == 0:
+        assert stamps.sites == [] and slots == [] and stamps.buffer is None
+        return
+    assert slots == list(range(2 * len(stamps.sites)))
+    assert [(m["level"], m["part"], m.get("step"))
+            for _, m in stamps.sites] == list(_interp_samples(cfg))
+    assert {n for n, _ in stamps.sites} == {"mctf.interp"}
+    assert stamps.buffer.dtype == torch.int64
+
+
+def test_place_stamps_gives_each_region_its_card_time():
+    sites = [("mctf.interp", {"level": 1, "part": "pred_up"}),
+             ("mctf.interp", {"level": 1, "part": "pred_down"})]
+    g0 = 7_000_000_000_000
+    values = [g0, g0 + 1_000_000, g0 + 3_500_000, g0 + 3_600_000,
+              g0 + 4_100_000]
+    a, b = trace.place_stamps(values, sites, 50.0)
+    assert a == {"device_stage": "mctf.interp", "level": 1,
+                 "part": "pred_up", "device_seconds": 0.0025,
+                 "start": 50.001, "ts": pytest.approx(50.0035)}
+    assert b["part"] == "pred_down"
+    assert b["device_seconds"] == pytest.approx(0.0005)
+    assert b["start"] == pytest.approx(50.0036)
+    assert b["ts"] == pytest.approx(50.0041)
+
+
+class _ReplayStamps:
+    """A stand-in for a replay's stamps on their way to the host:
+    ``values`` as the card wrote them, readable once ``done`` has run."""
+
+    def __init__(self, card, sites, values):
+        self.sites = sites
+        self.host = torch.tensor(values, dtype=torch.int64)
+        self.done = card.Event(enable_timing=True)
+        self.fetched = 0
+
+    def fetch(self):
+        self.fetched += 1
+        self.done.record()
+
+
+def test_two_replays_in_flight_keep_their_own_regions(monkeypatch, log):
+    """Two replays of one stamped program queued before either ran: each
+    replay's regions are placed inside its own device span, from its own
+    stamps, and none is resolved before its stamps reached the host."""
+    card = _Card()
+    monkeypatch.setattr(torch.cuda, "Event", card.Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", card.synchronize)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: None)
+    dev = torch.device("cuda", 0)
+    sites = [("mctf.interp", {"level": 1, "part": "me_up", "step": 1}),
+             ("mctf.interp", {"level": 1, "part": "pred_up"})]
+    ns = 1_000_000
+    first = _ReplayStamps(card, sites, [10 * ns, 12 * ns, 20 * ns,
+                                        30 * ns, 33 * ns])
+    second = _ReplayStamps(card, sites, [90 * ns, 91 * ns, 92 * ns,
+                                         95 * ns, 99 * ns])
+    card.now = 100.0
+    with trace.device_stage("graph.analyze", dev, stamps=first):
+        card.now = 100.040
+    with trace.device_stage("graph.analyze", dev, stamps=second):
+        card.now = 100.060
+    assert first.fetched == second.fetched == 1
+    # the first replay's work has run, its stamps not yet: nothing placed
+    p = log._pending[0]
+    p[2].done = p[3].done = True
+    log._resolve(wait=False)
+    assert not [r for r in log._records if "device_stage" in r]
+    first.done.done = True
+    log._resolve(wait=False)
+    assert [r["device_stage"] for r in log._records
+            if "device_stage" in r] == ["graph.analyze", "mctf.interp",
+                                        "mctf.interp"]
+    spans = _named(log, "device_stage")
+    assert [r["device_stage"] for r in spans] == [
+        "graph.analyze", "mctf.interp", "mctf.interp"] * 2
+    outer1, a1, b1, outer2, a2, b2 = spans
+    assert (a1["device_seconds"], b1["device_seconds"]) == pytest.approx(
+        (0.008, 0.003))
+    assert (a2["device_seconds"], b2["device_seconds"]) == pytest.approx(
+        (0.001, 0.004))
+    assert a1["start"] == pytest.approx(outer1["start"] + 0.002)
+    assert b1["start"] == pytest.approx(outer1["start"] + 0.020)
+    assert a2["start"] == pytest.approx(outer2["start"] + 0.001)
+    assert b2["start"] == pytest.approx(outer2["start"] + 0.005)
+    for outer, regions in ((outer1, (a1, b1)), (outer2, (a2, b2))):
+        for r in regions:
+            assert outer["start"] <= r["start"] and r["ts"] <= outer["ts"]
+    assert a1["step"] == 1 and b2["part"] == "pred_up"
+
+
+def test_replay_stamps_only_under_a_log_that_keeps_them():
+    graph = trace.GraphStamps(None)
+    graph.sites.append(("mctf.interp", {"level": 1}))
+    trace.set_run_log(None)
+    assert trace.replay_stamps(graph, "graph.analyze", "cuda:0") is None
+    for only in (("graph.analyze",), ("mctf.interp",)):
+        trace.set_run_log(trace.RunLog(only=only))
+        try:
+            assert trace.replay_stamps(graph, "graph.analyze",
+                                       "cuda:0") is None
+        finally:
+            trace.set_run_log(None)
+    trace.set_run_log(trace.RunLog())
+    try:
+        assert trace.replay_stamps(None, "graph.analyze", "cuda:0") is None
+        assert trace.replay_stamps(trace.GraphStamps(None),
+                                   "graph.analyze",
+                                   "cuda:0") is None
+    finally:
+        trace.set_run_log(None)
+
+
+def test_trace_imports_nothing_above_it():
+    """``utils/trace`` is the lowest layer: the stamp kernel is handed to
+    it (``utils/graphs``), so it imports nothing of the port's ops, codec
+    or MCTF."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(trace))
+    imported = [n.module or "" for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.level > 0]
+    assert imported == [], imported
