@@ -36,7 +36,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    bounds; then K5 (the bp R-D simulation) on both texture stacks of
    phase 4's first GOP against its plain version: equal keep masks at
    the config's slope floor and smax within rel 1e-5, kernel and plain
-   times per GOP beside the bound;
+   times per GOP beside the bound; then K6 and K7 (the 5/3 interpolation
+   and decimation) at every launch of one MCTF analysis of phase 4's
+   first GOP at sub-pixel accuracy 2 and over the full int16 range at
+   the quarter-pel cell's level-1 regions (``me_up`` steps 1-2,
+   ``pred_up``, ``pred_down``) and the chroma's conversions, exact
+   against the plain closed forms and timed beside their byte bounds and
+   the plain passes;
 3. correctness on the card: the MCTF analysis and synthesis of a small
    sequence on the card, eager and as the captured programs
    ``analyze_jit``/``synthesize_jit``, equal the plain CPU run,
@@ -68,7 +74,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    says so and runs nothing;
 6. the sub-pixel flagship: phase 4's run at sub-pixel accuracy 2 (4
    GOPs, fps, bpp, PSNR and launches; fails if K1-K3 never launch or
-   PSNR-Y < 25 dB), then one GOP at accuracy 3 with OLA (block_overlaping
+   PSNR-Y < 25 dB), the launches of K6 and K7 in each of one GOP's 16
+   ``mctf.interp`` regions (one each, or the phase fails), then one GOP
+   at accuracy 3 with OLA (block_overlaping
    8) and border_size 2, lossless, which must round-trip bit-exactly
    through its container bytes;
 7. the codec's user surface: (a) ``qsvc_tpu_torch.cli`` in this process
@@ -161,9 +169,9 @@ rate below: int32 for K2-K4, and for K1 two fp32 lane operations per SAD
 term (a subtraction and an addition of an absolute value, exact in fp32
 while no int16 difference wraps); for K5 one int32 operation per row and
 bit-plane below each block's msbs, a floor that leaves its bytes the
-bound.  K5 is held to the plain version's keep decisions (its JSON entry
+bound; K6 and K7 by their bytes alone.  K5 is held to the plain version's keep decisions (its JSON entry
 has ``keep_differing`` and ``smax_max_rel_err`` for ``max_abs_err``).
-No single PyTorch call computes K1-K5, so ``library_ms`` is null.
+No single PyTorch call computes K1-K7, so ``library_ms`` is null.
 """
 
 import collections
@@ -191,12 +199,22 @@ KERNEL_SOURCES = {
                    "qsvc_tpu/ops/pallas_mc.py:297"),
     "bp_slope": ("qsvc_tpu_torch/csrc/bp_slope.cu",
                  "none: qsvc_tpu/codec/bp_device.py:67 is plain jnp"),
+    "interp_up": ("qsvc_tpu_torch/csrc/interp.cu",
+                  "none: qsvc_tpu/ops/dwt2d.py upsample2 is plain jnp"),
+    "interp_down": ("qsvc_tpu_torch/csrc/interp.cu",
+                    "none: qsvc_tpu/ops/dwt2d.py downsample2 is plain jnp"),
 }
 #: the names phase 2 prints for the MC kernels
 _SHORT = {"mc_predict": "K2", "mc_update2": "K3", "mc_update1": "K4"}
 #: the kernels the sequential flagship (phase 4) must launch; K4 runs on
-#: the sharded path (phase 5a)
-SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2", "bp_slope")
+#: the sharded path (phase 5a); K6 and K7 at one step (the chroma's 4:2:0
+#: <-> 4:4:4 and the motion search's pyramid) at every accuracy
+SEQUENTIAL_KERNELS = ("me_refine", "mc_predict", "mc_update2", "bp_slope",
+                      "interp_up", "interp_down")
+#: sub-pixel regions (``mctf.interp`` spans) of one GOP of the flagship at
+#: a = 2: per temporal level the motion search's 2 steps, the
+#: prediction's interpolation and its decimation, one launch each
+SUBPEL_REGIONS_PER_GOP = 16
 #: K5's launches per encoded GOP: one per texture stack (luma, chroma)
 BP_SLOPE_PER_GOP = 2
 #: K5 against the plain version: float32 sums of squares round in the
@@ -512,12 +530,14 @@ def phase_kernel_parity(dev):
     for name, err in _ss_decode_calls(dev).items():
         results[name] = (max(results[name][0], err),) + results[name][1:]
     results["bp_slope"] = _k5_parity(dev)
+    results.update(_interp_parity(dev))
 
     bad = {k: v[0] for k, v in results.items() if v[0] != 0}
     if bad:
         raise SystemExit(f"phase 2 kernel parity FAILED: {bad}")
-    print("phase 2 kernel parity: ok (K1, K2, K3, K4 exact vs plain "
-          "versions; K5 keeps the plain version's blocks)", flush=True)
+    print("phase 2 kernel parity: ok (K1, K2, K3, K4, K6, K7 exact vs "
+          "plain versions; K5 keeps the plain version's blocks)",
+          flush=True)
     return results
 
 
@@ -704,6 +724,147 @@ def _k5_parity(dev):
         raise SystemExit(f"phase 2: K5's smax differs from the plain "
                          f"version by {rel:.3e} > {BP_SLOPE_RTOL}")
     return differ, ms, plain_ms, bound, rel
+
+
+def _plain_interp(x, steps, up):
+    """K6's (``up``) or K7's plain version on the tensor's own device."""
+    from qsvc_tpu_torch.ops import dwt2d
+    return (dwt2d._interpolate_plain if up else dwt2d._decimate_plain)(
+        x, steps)
+
+
+@contextlib.contextmanager
+def _checking_interp(worst, launches):
+    """While open, every launch of K6 and K7 is compared with the plain
+    closed forms on its own input: the largest difference per kernel goes
+    to ``worst``, the launches per (kernel, steps) to ``launches``."""
+    from qsvc_tpu_torch.ops import cuda_interp
+    up, down = cuda_interp.upsample, cuda_interp.downsample
+
+    def check_up(xs, steps):
+        outs = up(xs, steps)
+        for x, o in zip(xs, outs):
+            worst["interp_up"] = max(worst["interp_up"], _max_err(
+                o, _plain_interp(x, steps, True)))
+        launches[("interp_up", steps)] += 1
+        return outs
+
+    def check_down(x, steps):
+        out = down(x, steps)
+        worst["interp_down"] = max(worst["interp_down"], _max_err(
+            out, _plain_interp(x, steps, False)))
+        launches[("interp_down", steps)] += 1
+        return out
+    cuda_interp.upsample, cuda_interp.downsample = check_up, check_down
+    try:
+        yield
+    finally:
+        cuda_interp.upsample, cuda_interp.downsample = up, down
+
+
+def _interp_parity(dev):
+    """K6 and K7 (the 5/3 interpolation and decimation) against the plain
+    closed forms at every launch of one MCTF analysis of phase 4's first
+    GOP at a = 2 (the 16 sub-pixel regions, the chroma's conversions, the
+    motion search's pyramid), then over the full int16 range at cell 3's
+    level-1 regions and the chroma's calls, each timed (CUDA-graph
+    replays, device time) beside its bound (its input read once, its
+    output written once) and the plain passes.  Returns {kernel:
+    (max_abs_err, ms, plain_ms, (bound_ms, "bytes"))}, the times of level
+    1's ``pred_up`` and ``pred_down``."""
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.mctf import transform
+    from qsvc_tpu_torch.ops import cuda_interp
+    gop = _flagship_cfg(GOPs=1, subpixel_accuracy=2)
+    vid = synthetic_video(gop.pictures, gop.pixels_in_y, gop.pixels_in_x,
+                          seed=0)
+    planes = [torch.from_numpy(p).to(dev) for p in vid.planes()]
+    worst = {"interp_up": 0.0, "interp_down": 0.0}
+    launches = collections.Counter()
+    with _checking_interp(worst, launches):
+        transform.analyze(*planes, gop)
+    torch.cuda.synchronize()
+    print(f"  K6/K7 at every launch of an a=2 analysis of phase 4's first "
+          f"GOP: max_abs_err {worst}, launches by (kernel, steps) "
+          f"{dict(launches)}", flush=True)
+    del planes
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    H, W = FLAGSHIP_H, FLAGSHIP_W
+
+    def rand(*shape):
+        return torch.randint(-2**15, 2**15, shape, generator=gen,
+                             device=dev, dtype=torch.int16)
+    # (label, kernel, inputs, steps): level 1's 9 evens and 8 odds (4:4:4:
+    # 27 and 24 planes), the chroma of cell 1's level 1
+    calls = [("pred_up L1 a=2", "interp_up", [rand(9, 3, H, W)], 2),
+             ("pred_down L1 a=2", "interp_down",
+              [rand(8, 3, 4 * H, 4 * W)], 2),
+             ("me_up L1 step 1", "interp_up",
+              [rand(9, H, W), rand(8, H, W)], 1),
+             ("me_up L1 step 2", "interp_up",
+              [rand(9, 2 * H, 2 * W), rand(8, 2 * H, 2 * W)], 1),
+             ("chroma to 4:4:4 L1", "interp_up", [rand(9, H // 2, W // 2)],
+              1),
+             ("chroma to 4:2:0 L1", "interp_down",
+              [rand(8, 3, H, W)[:, 1]], 1)]
+    out = {}
+    for label, name, xs, steps in calls:
+        up = name == "interp_up"
+
+        def kernel():
+            return (cuda_interp.upsample(xs, steps) if up else
+                    [cuda_interp.downsample(xs[0], steps)])
+        got = kernel()
+        err = max(_max_err(o, _plain_interp(x, steps, up))
+                  for x, o in zip(xs, got))
+        worst[name] = max(worst[name], err)
+        bound = _bound(sum(x.numel() * 2 for x in xs) + _nbytes(*got), 0)
+        del got
+        ms = _graph_ms(kernel, calls=10)
+        plain = _cuda_ms(lambda: [_plain_interp(x, steps, up) for x in xs],
+                         reps=3, batch=2, warmup=1)
+        print(f"  {'K6' if up else 'K7'} {label} ({len(xs)} stack(s) of "
+              f"{tuple(xs[0].shape)}, {steps} step(s)): max_abs_err {err}, "
+              f"kernel {ms:.4f} ms ({bound[0] / ms:.0%} of its "
+              f"{bound[0]:.4f} ms {bound[1]} bound), plain {plain:.4f} ms",
+              flush=True)
+        out.setdefault(name, (ms, plain, bound))
+        del xs
+        torch.cuda.empty_cache()
+    return {name: (worst[name],) + row for name, row in out.items()}
+
+
+def _region_launches(dev, cfg):
+    """The launches of K6 and K7 inside each ``mctf.interp`` region of one
+    eager MCTF analysis of phase 4's first GOP at ``cfg`` on the card, in
+    the order the regions ran: [(part, step, launches)]."""
+    from qsvc_tpu_torch.io import synthetic_video
+    from qsvc_tpu_torch.mctf import transform
+    from qsvc_tpu_torch.ops import cuda_lib, dwt2d
+    vid = synthetic_video(cfg.pictures, cfg.pixels_in_y, cfg.pixels_in_x,
+                          seed=0)
+    gop = cfg.replace(GOPs=1)
+    planes = [torch.from_numpy(p[:gop.pictures]).to(dev)
+              for p in vid.planes()]
+    regions, span = [], dwt2d.interp_span
+
+    @contextlib.contextmanager
+    def counted(part, frames, steps, *args, **kw):
+        with span(part, frames, steps, *args, **kw):
+            before = sum(cuda_lib.launches[k]
+                         for k in ("interp_up", "interp_down"))
+            yield
+            n = sum(cuda_lib.launches[k]
+                    for k in ("interp_up", "interp_down")) - before
+        if steps:
+            regions.append((part, kw.get("step"), n))
+    dwt2d.interp_span = counted
+    try:
+        transform.analyze(*planes, gop)
+    finally:
+        dwt2d.interp_span = span
+    return regions
 
 
 def _scaling_level_calls(dev, rand_planes):
@@ -938,6 +1099,14 @@ def phase_subpixel(dev):
     t_start = time.time()
     _staged_run(dev, _flagship_cfg(subpixel_accuracy=2),
                 "phase 6 sub-pixel flagship a=2 1920x1088 GOP16", "phase 6")
+    regions = _region_launches(dev, _flagship_cfg(subpixel_accuracy=2))
+    if (len(regions) != SUBPEL_REGIONS_PER_GOP
+            or any(n != 1 for *_, n in regions)):
+        raise SystemExit(f"phase 6: the a=2 GOP's sub-pixel regions must "
+                         f"launch K6 or K7 once each, "
+                         f"{SUBPEL_REGIONS_PER_GOP} in all: {regions}")
+    print(f"  6 the a=2 GOP's {len(regions)} sub-pixel regions launched K6 "
+          f"or K7 once each", flush=True)
     torch.cuda.empty_cache()
     cfg = _flagship_cfg(GOPs=1, subpixel_accuracy=3, block_overlaping=8,
                         border_size=2, update_factor=0.0,

@@ -200,11 +200,11 @@ def estimate_sequence(evens: torch.Tensor, odds: torch.Tensor,
     cap = search_range << subpixel_accuracy
     for s in range(1, subpixel_accuracy + 1):
         # the refinements read every step's output; the first step reads
-        # the frames (:func:`dwt2d.interp_span`)
+        # the frames (:func:`dwt2d.interp_span`); on the card one launch
+        # of K6 writes both stacks
         with dwt2d.interp_span("me_up", [up_e, up_o], 1, reads=s == 1,
                                step=s):
-            up_e = dwt2d.upsample2(up_e).contiguous()
-            up_o = dwt2d.upsample2(up_o).contiguous()
+            up_e, up_o = dwt2d.interpolate([up_e, up_o], 1)
         mv = (mv * 2).clamp(-cap, cap)
         mv = _refine_level_batch(up_o, up_e[:-1], up_e[1:], mv,
                                  block_size << s, border_size >> s, H << s,

@@ -266,19 +266,17 @@ def predict_frames_subpixel_evens(evens444: torch.Tensor, mv: torch.Tensor,
 
 
 def _interpolate(frames: torch.Tensor, a: int) -> torch.Tensor:
-    """``a`` steps of x2 interpolation (zero-high 5/3 synthesis)."""
+    """``a`` steps of x2 interpolation (zero-high 5/3 synthesis; on the
+    card one launch of K6)."""
     with dwt2d.interp_span("pred_up", [frames], a):
-        for _ in range(a):
-            frames = dwt2d.upsample2(frames)
-    return frames
+        return dwt2d.interpolate([frames], a)[0]
 
 
 def _decimate(pred: torch.Tensor, a: int) -> torch.Tensor:
-    """``a`` analysis levels keeping LL: back to base resolution."""
+    """``a`` analysis levels keeping LL: back to base resolution (on the
+    card one launch of K7)."""
     with dwt2d.interp_span("pred_down", [pred], a, up=False):
-        for _ in range(a):
-            pred = dwt2d.downsample2(pred)
-    return pred
+        return dwt2d.decimate(pred, a)
 
 
 def refs_to_444(frame: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]

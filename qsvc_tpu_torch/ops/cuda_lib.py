@@ -8,10 +8,11 @@ fallback.  Nothing here runs at import, so CPU-only hosts import the
 kernel modules freely.
 
 ``launches`` counts kernel launches per kernel name; the wrappers in
-``cuda_me.py`` / ``cuda_mc.py`` / ``cuda_bp.py`` add one where they
-launch, so a run can show that its main path went through the kernels.  While a CUDA graph is
-captured (``utils/graphs.py``) nothing runs: :func:`counting_into` sends
-that thread's counts to the graph's record, which each replay adds.
+``cuda_me.py`` / ``cuda_mc.py`` / ``cuda_bp.py`` / ``cuda_interp.py`` add
+one where they launch, so a run can show that its main path went through
+the kernels.  While a CUDA graph is captured (``utils/graphs.py``)
+nothing runs: :func:`counting_into` sends that thread's counts to the
+graph's record, which each replay adds.
 """
 
 from __future__ import annotations
@@ -106,9 +107,14 @@ def load():
             lib.qsvc_mc_update1.argtypes = [vp] * 4 + [ci] * 9 + [vp]
             lib.qsvc_bp_slope.argtypes = [vp] * 5 + [ci] * 2 + [vp]
             lib.qsvc_stamp.argtypes = [vp, ci, vp]
+            cl = ctypes.c_longlong
+            lib.qsvc_interp_up.argtypes = ([vp, cl, ci, vp] * 2
+                                           + [ci] * 3 + [vp])
+            lib.qsvc_interp_down.argtypes = [vp, cl, ci, vp] + [ci] * 3 + [vp]
             for fn in (lib.qsvc_me_refine, lib.qsvc_mc_predict,
                        lib.qsvc_mc_update2, lib.qsvc_mc_update1,
-                       lib.qsvc_bp_slope, lib.qsvc_stamp):
+                       lib.qsvc_bp_slope, lib.qsvc_stamp,
+                       lib.qsvc_interp_up, lib.qsvc_interp_down):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib

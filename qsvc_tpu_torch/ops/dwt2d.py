@@ -17,7 +17,7 @@ from typing import List, Sequence
 import torch
 
 from ..utils import trace
-from . import lifting
+from . import cuda_interp, lifting
 
 
 def _level_sizes(n: int, levels: int) -> List[int]:
@@ -96,7 +96,10 @@ def synthesize(x: torch.Tensor, levels: int, filt: str = "5/3"
 
 # ---------------------------------------------------------------------------
 # Interpolation helpers (zero the high bands and synthesize; keep the LL
-# band of one analysis level) — chroma 4:2:0 <-> 4:4:4 in the MCTF path
+# band of one analysis level) — chroma 4:2:0 <-> 4:4:4 in the MCTF path.
+# The 5/3 closed forms run as kernels K6 and K7 (``ops/cuda_interp``) on
+# CUDA tensors, a region's steps in one launch, and as the plain passes
+# below on CPU tensors.
 # ---------------------------------------------------------------------------
 
 def _interp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -130,12 +133,54 @@ def _low_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return se + lifting.tdiv(h + h_left, 4)
 
 
+def _interpolate_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """K6's plain version: ``steps`` closed-form 5/3 syntheses, each
+    columns then rows."""
+    for _ in range(steps):
+        x = _interp_axis(_interp_axis(x, -2), -1)
+    return x
+
+
+def _decimate_plain(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """K7's plain version: ``steps`` closed-form 5/3 low bands of even
+    dims, each rows then columns."""
+    for _ in range(steps):
+        x = _low_axis(_low_axis(x, -1), -2)
+    return x
+
+
+def interpolate(xs: Sequence[torch.Tensor], steps: int
+                ) -> List[torch.Tensor]:
+    """``steps`` 5/3 :func:`upsample2` of each of ``xs`` (one or two
+    stacks of one frame size): one launch of K6 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if steps == 0:
+        return list(xs)
+    if xs[0].is_cuda:
+        return cuda_interp.upsample(xs, steps)
+    return [_interpolate_plain(x, steps) for x in xs]
+
+
+def decimate(x: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` 5/3 :func:`downsample2`: where every step halves even
+    dims, one launch of K7 for a CUDA tensor and the plain version for a
+    CPU tensor; otherwise step by step."""
+    H, W = x.shape[-2], x.shape[-1]
+    if steps == 0 or H % (1 << steps) or W % (1 << steps):
+        for _ in range(steps):
+            x = downsample2(x)
+        return x
+    if x.is_cuda:
+        return cuda_interp.downsample(x, steps)
+    return _decimate_plain(x, steps)
+
+
 def upsample2(x: torch.Tensor, filt: str = "5/3") -> torch.Tensor:
     """Interpolate x2 in both dimensions: ``x`` as the LL band of a
     double-size canvas with zero high bands, one synthesis level (5/3:
     closed form, columns then rows like ``synthesize``)."""
     if filt == "5/3":
-        return _interp_axis(_interp_axis(x, -2), -1)
+        return interpolate([x], 1)[0]
     H, W = x.shape[-2], x.shape[-1]
     canvas = x.new_zeros(x.shape[:-2] + (2 * H, 2 * W))
     canvas[..., :H, :W] = x
@@ -147,7 +192,7 @@ def downsample2(x: torch.Tensor, filt: str = "5/3") -> torch.Tensor:
     closed form, rows then columns like ``analyze``)."""
     H, W = x.shape[-2], x.shape[-1]
     if filt == "5/3" and H % 2 == 0 and W % 2 == 0:
-        return _low_axis(_low_axis(x, -1), -2)
+        return decimate(x, 1)
     packed = analyze(x, 1, filt)
     return packed[..., :H - H // 2, :W - W // 2]
 

@@ -99,8 +99,8 @@ def profile_mctf(cfg: CodecConfig, video: Video, device="cuda",
         for s in range(1, a + 1):
             up_e, up_o = timed(
                 f"  ME sub-pixel step {s}: upsample2 of evens and odds",
-                lambda e, o: (dwt2d.upsample2(e).contiguous(),
-                              dwt2d.upsample2(o).contiguous()), up_e, up_o)
+                lambda e, o: tuple(dwt2d.interpolate([e, o], 1)), up_e,
+                up_o)
             sub = timed(f"  ME sub-pixel step {s}: refine (K1, block "
                         f"{bs << s})", me._refine_level_batch, up_o,
                         up_e[:-1], up_e[1:], (sub * 2).clamp(-cap, cap),

@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels (K1 spiral SAD, K2 predict, K3 update,
-K4 one-direction update, K5 the bp R-D simulation) against their plain
-PyTorch versions (K5 also against the native coder's pass records), and
-the captured programs (``utils/graphs.py``) against their eager runs.
+K4 one-direction update, K5 the bp R-D simulation, K6 and K7 the 5/3
+interpolation and decimation) against their plain PyTorch versions (K5
+also against the native coder's pass records), and the captured programs
+(``utils/graphs.py``) against their eager runs.
 
 Tests marked ``gpu`` need a CUDA device and skip without one;
 ``python3 chip_smoke.py`` runs the same comparisons at the flagship
@@ -9,6 +10,7 @@ shapes on the card.  The wrappers' argument checks run anywhere."""
 
 import collections
 import concurrent.futures
+import contextlib
 
 import numpy as np
 import pytest
@@ -19,7 +21,8 @@ from qsvc_tpu_torch.codec import bp_device, fast, frame_codec
 from qsvc_tpu_torch.config import CodecConfig
 from qsvc_tpu_torch.io import synthetic_video
 from qsvc_tpu_torch.mctf import me, motion_coding, predict, transform, update
-from qsvc_tpu_torch.ops import cuda_bp, cuda_lib, cuda_mc, cuda_me
+from qsvc_tpu_torch.ops import (cuda_bp, cuda_interp, cuda_lib, cuda_mc,
+                                cuda_me, dwt2d)
 from qsvc_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
@@ -746,3 +749,189 @@ def test_k5_rejects(fault, match):
     tiles, th, tw, stripe = _k5_args(fault)
     with pytest.raises(ValueError, match=match):
         cuda_bp.bp_slope(tiles, th, tw, stripe)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the 5/3 interpolation and decimation
+# ---------------------------------------------------------------------------
+
+#: the cells' frame, and the pairs and search range of each temporal level
+CELL_H, CELL_W = 1088, 1920
+CELL_LEVELS = ((8, 4), (4, 8), (2, 16), (1, 32))
+
+
+def _plain_interp(x, steps, up):
+    return (dwt2d._interpolate_plain if up else dwt2d._decimate_plain)(
+        x, steps)
+
+
+def _card_int16(shape, seed, lo=-2**15, hi=2**15):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int16)
+
+
+def _assert_interp_exact(xs, steps, up):
+    got = (cuda_interp.upsample(xs, steps) if up else
+           [cuda_interp.downsample(xs[0], steps)])
+    assert len(got) == len(xs)
+    for x, g in zip(xs, got):
+        assert torch.equal(g, _plain_interp(x, steps, up))
+
+
+def _cell_calls():
+    """(label, up, input shapes, steps, chroma view) of every K6 and K7
+    launch of the cells' MCTF at accuracies 0-3: per temporal level the
+    motion search's steps (evens and odds), the prediction's 4:4:4
+    interpolation and decimation, the chroma's 4:2:0 -> 4:4:4 (3-D
+    stacks) and back (plane 1 of the 4:4:4 predictions, a view), and the
+    motion search's LL pyramid."""
+    H, W = CELL_H, CELL_W
+    calls = []
+    for P, sr in CELL_LEVELS:
+        for s in (1, 2, 3):
+            hw = (H << (s - 1), W << (s - 1))
+            calls.append((f"me_up P={P} step {s}", True,
+                          [(P + 1,) + hw, (P,) + hw], 1, False))
+        for a in (1, 2, 3):
+            calls.append((f"pred_up P={P} a={a}", True,
+                          [(P + 1, 3, H, W)], a, False))
+            calls.append((f"pred_down P={P} a={a}", False,
+                          [(P, 3, H << a, W << a)], a, False))
+        calls.append((f"chroma up P={P}", True,
+                      [(P + 1, H // 2, W // 2)], 1, False))
+        calls.append((f"chroma down P={P}", False, [(P, 3, H, W)], 1, True))
+        for d in range(int(np.log2(sr)) - 1):
+            calls.append((f"pyramid P={P} depth {d + 1}", False,
+                          [(P + 1, H >> d, W >> d)], 1, False))
+    return calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,up,shapes,steps,view", _cell_calls(),
+                         ids=[c[0] for c in _cell_calls()])
+def test_interp_kernels_exact_at_the_cells_calls(cuda, label, up, shapes,
+                                                 steps, view):
+    """K6 and K7 == the plain closed forms at every call the cells make,
+    over the full int16 range (so every wrap of the plain int16 sums)."""
+    xs = [_card_int16(sh, i) for i, sh in enumerate(shapes)]
+    if view:
+        xs = [xs[0][:, 1]]
+    _assert_interp_exact(xs, steps, up)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 2, 3])
+@pytest.mark.parametrize("H,W", [(1, 1), (3, 5), (17, 31), (5, 64),
+                                 (33, 70), (70, 257)])
+def test_interp_kernels_exact_at_small_and_odd_sizes(cuda, H, W, steps):
+    """Odd frames for the interpolation (two stacks, one launch), odd
+    outputs for the decimation, and rows too short or unaligned for the
+    16-byte paths; 0..255 and full-range values."""
+    for lo, hi in ((0, 256), (-2**15, 2**15)):
+        _assert_interp_exact([_card_int16((2, H, W), 1, lo, hi),
+                              _card_int16((3, H, W), 2, lo, hi)], steps,
+                             True)
+        _assert_interp_exact(
+            [_card_int16((2, H << steps, W << steps), 3, lo, hi)], steps,
+            False)
+
+
+#: int16 values whose sums and differences wrap
+WRAPPING = (-32768, -32767, -16385, -1, 0, 1, 16384, 32766, 32767)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 2, 3])
+def test_interp_kernels_wrap_as_int16(cuda, steps):
+    """Inputs drawn from values whose ``x + nxt``, ``so - ...`` and
+    ``se + ...`` leave the int16 range, over several tiles and as views
+    whose rows are not contiguous (the wrapper copies them)."""
+    values = torch.tensor(WRAPPING, dtype=torch.int16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(steps)
+    pick = torch.randint(0, len(WRAPPING), (2, 3, 72, 600), generator=gen,
+                         device=cuda)
+    x = values[pick]
+    assert ((x[..., 1:].int() + x[..., :-1].int()).abs() > 32767).any()
+    _assert_interp_exact([x, x[:1, :2]], steps, True)
+    _assert_interp_exact([x[..., ::2]], steps, True)
+    _assert_interp_exact([x[..., :8 << steps, :64 << steps]], steps, False)
+    big = values[torch.randint(0, len(WRAPPING), (2, 72 << steps,
+                                                  600 << steps),
+                               generator=gen, device=cuda)]
+    _assert_interp_exact([big], steps, False)
+
+
+def _subpel_regions(cfg, frames):
+    """[(part, step, K6/K7 launches)] of each ``mctf.interp`` region of an
+    eager analysis of ``frames`` on the card, the plain closed forms made
+    to raise."""
+    regions, span = [], dwt2d.interp_span
+
+    def counted(part, xs, steps, *args, **kw):
+        @contextlib.contextmanager
+        def region():
+            with span(part, xs, steps, *args, **kw):
+                before = sum(cuda_lib.launches[k]
+                             for k in ("interp_up", "interp_down"))
+                yield
+                n = sum(cuda_lib.launches[k]
+                        for k in ("interp_up", "interp_down")) - before
+            regions.append((part, kw.get("step"), n))
+        return region()
+
+    def plain(*args, **kw):
+        raise AssertionError("a CUDA tensor reached the plain passes")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dwt2d, "interp_span", counted)
+        mp.setattr(dwt2d, "_interp_axis", plain)
+        mp.setattr(dwt2d, "_low_axis", plain)
+        transform.analyze(*frames, cfg)
+    return regions
+
+
+@pytest.mark.gpu
+def test_interp_one_launch_per_region_of_a_flagship_gop(cuda):
+    """A quarter-pel analysis of one 1920x1088 GOP (4 temporal levels)
+    opens 16 ``mctf.interp`` regions, each one launch of K6 or K7, and
+    never reaches the plain passes."""
+    cfg = CodecConfig(pixels_in_x=CELL_W, pixels_in_y=CELL_H, TRLs=5,
+                      GOPs=1, SRLs=5, search_range=4, update_factor=0.25,
+                      quantization_texture=45000, subpixel_accuracy=2)
+    vid = synthetic_video(cfg.pictures, CELL_H, CELL_W, seed=0,
+                          kind="translate", velocity=(1.25, 2.5))
+    frames = [torch.from_numpy(p).to(cuda) for p in vid.planes()]
+    regions = _subpel_regions(cfg, frames)
+    parts = [(p, s) for p, s, _ in regions]
+    assert parts == [("me_up", 1), ("me_up", 2), ("pred_up", None),
+                     ("pred_down", None)] * 4
+    assert [n for *_, n in regions] == [1] * 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a", [1, 2])
+def test_subpel_encode_on_the_card_equals_the_reference(cuda, a):
+    """The streamed quarter-pel encode on the card (K1-K7) gives the
+    benchmark's plain reference's bytes, GOP for GOP, as
+    ``tests/test_torch_subpel_stream.py`` holds on the CPU."""
+    from benchmark.content import translate
+    from benchmark.reference import encode as reference
+    from benchmark.reference.config import CodecConfig as RefConfig
+    from qsvc_tpu_torch.io.yuv import Video
+    geometry = dict(pixels_in_x=256, pixels_in_y=128, TRLs=3, SRLs=3,
+                    block_size=16, search_range=4)
+    cfg = CodecConfig(**geometry, GOPs=2, subpixel_accuracy=a)
+    S = cfg.gop_size
+    y, u, v = translate.make(cfg.pictures, 128, 256, {
+        "content_seed": 11, "velocity_y": 1.25, "velocity_x": 2.5}, "cpu")
+    chunks = [Video(y, u, v)[g * S:(g + 1) * S + 1] for g in range(2)]
+    cuda_lib.reset_launches()
+    streams = [vs.to_bytes() for vs in api.compress_chunks(
+        chunks, cfg.replace(GOPs=1), reversible=False, window=2,
+        device="cuda")]
+    assert cuda_lib.launches["interp_up"] and cuda_lib.launches[
+        "interp_down"]
+    rcfg = RefConfig(**geometry, GOPs=1, subpixel_accuracy=a)
+    for chunk, data in zip(chunks, streams):
+        assert reference.encode(chunk.y, chunk.u, chunk.v, rcfg,
+                                "cpu") == data
